@@ -1,0 +1,9 @@
+"""The port's model zoo (dense GQA family so far).
+
+>>> cfg = get_config("smollm-360m", reduced=True)
+>>> model = init_model(cfg, seed=0, device="cpu")
+>>> logits, caches = forward(model, {"tokens": tok})
+"""
+from .config import ModelConfig  # noqa: F401
+from .transformer import (Transformer, forward, init_caches,  # noqa: F401
+                          init_model)

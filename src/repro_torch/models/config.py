@@ -1,0 +1,97 @@
+"""Unified architecture config (the port's own copy of the JAX package's
+``ModelConfig``; same fields and defaults, so configs compare like for
+like). Family-specific fields are inert elsewhere. Exact values for each
+ported architecture live in ``repro_torch/configs/<id>.py``.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                   # dense | moe | hybrid | ssm | vlm | audio
+    n_layers: int
+    d_model: int
+    d_ff: int
+    vocab_size: int
+    n_heads: int = 0
+    n_kv_heads: int = 0
+    d_head: int = 0
+
+    # ---- attention variants
+    attn_type: str = "gqa"        # gqa | mla | none
+    causal: bool = True
+    window: int | None = None     # sliding-window size (SWA / local layers)
+    local_global_period: int = 0  # gemma2: alternate local/global every k
+    attn_logit_softcap: float | None = None
+    final_logit_softcap: float | None = None
+    rope_theta: float = 10000.0
+    qk_norm: bool = False
+
+    # ---- MLA (DeepSeek-V2 / MiniCPM3)
+    q_lora_rank: int = 0          # 0 = full-rank q projection
+    kv_lora_rank: int = 0
+    qk_nope_dim: int = 0
+    qk_rope_dim: int = 0
+    v_head_dim: int = 0
+
+    # ---- MoE
+    n_experts: int = 0
+    n_shared_experts: int = 0
+    moe_top_k: int = 0
+    moe_d_ff: int = 0             # per-expert hidden
+    first_dense_layers: int = 0   # leading dense layers before MoE stack
+    moe_capacity_factor: float = 1.25
+
+    # ---- SSM (Mamba2) / hybrid
+    ssm_state: int = 0
+    ssm_conv: int = 4
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
+    hybrid_attn_period: int = 0   # zamba2: shared attn block every k blocks
+
+    # ---- RWKV6
+    rwkv_head_dim: int = 64
+    rwkv_decay_lora: int = 64
+    rwkv_mix_lora: int = 32
+
+    # ---- encoder / modality frontends
+    is_encoder: bool = False
+    frontend: str | None = None   # "vision_stub" | "audio_stub"
+    frontend_dim: int = 0
+    frontend_tokens: int = 0
+
+    # ---- numerics / runtime
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+    act: str = "silu"             # silu | gelu | relu
+    emb_scale_by_sqrt_dim: bool = False
+    dtype: str = "bfloat16"       # activation/compute dtype
+    param_dtype: str = "float32"
+    remat: bool = True
+    scan_layers: bool = True
+    attn_chunk: int = 512         # q-chunk for the plain blockwise attention
+    ssm_chunk: int = 256
+    loss_chunk: int = 512
+    use_kernels: bool = False
+
+    def __post_init__(self):
+        if self.attn_type == "gqa" and self.n_heads and not self.d_head:
+            object.__setattr__(self, "d_head", self.d_model // self.n_heads)
+        if self.family == "moe" and not self.moe_d_ff:
+            object.__setattr__(self, "moe_d_ff", self.d_ff)
+
+    @property
+    def q_per_kv(self) -> int:
+        return max(1, self.n_heads // max(self.n_kv_heads, 1))
+
+    @property
+    def padded_vocab(self) -> int:
+        """Vocab padded to a shardable multiple (Megatron-style)."""
+        m = 256
+        return ((self.vocab_size + m - 1) // m) * m
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
