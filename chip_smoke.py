@@ -5,9 +5,10 @@
 
 Phases, each printing its lines; any failure exits nonzero:
   1. device: the card's name and power limit; TF32 off.
-  2. build: every CUDA source of the port, one nvcc each, in parallel.
+  2. build: every CUDA source of the port, one nvcc each.
   3. kernels: each kernel against its plain PyTorch version on the card
-     at every tested variant, then timed at the serve path's shape.
+     at every tested variant and, in f32 and bf16, at the serve path's
+     shape, where it is then timed.
   4. serve: full-width smollm-360m (seeded random weights) serves 8
      requests of 900-1024 prompt tokens through ServeEngine; the kernel's
      launch count over that run must be one per layer per prefill wave,
@@ -55,11 +56,18 @@ VARIANTS = [
 TOL = {torch.float32: dict(rtol=3e-5, atol=1.2e-4),
        torch.bfloat16: dict(rtol=2e-2, atol=8e-2)}
 SMOLLM_SHAPE = (4, 1024, 1024, 15, 5, 64, 64)
-# Prefill logits, kernel vs plain attention, bf16 through 32 layers: the
-# two differ by the order of f32 sums inside attention, i.e. by at most
-# one bf16 rounding of each attention output, which the following
-# layers carry on. Held to 5e-2 of the largest |logit|.
-LOGIT_REL_TOL = 5e-2
+# At the serve path's shape (group of 3, 1024 keys) the kernel is held
+# to TOL[float32] in f32, and in bf16 to a limit near its reading: both
+# versions sum in f32 and round once to bf16, in another order, so an
+# element may differ by one bf16 step (2^-8 relative, under rtol). atol
+# is ~2.5x the H100 reading of 1.95e-3; one dropped 64-key tile moves
+# outputs (|o| ~ 0.05) by ~1e-2 and fails.
+SMOLLM_BF16_TOL = dict(rtol=1e-2, atol=5e-3)
+# Prefill logits, kernel vs plain attention, bf16 through 32 layers of
+# random weights: the one-step roundings of each layer's attention
+# output are carried on and grow. The H100 reading is 2.78 of max
+# |logit| 296 (0.94%); the limit, 2e-2 of max |logit|, is about twice it.
+LOGIT_REL_TOL = 2e-2
 
 
 def log(phase, msg):
@@ -182,13 +190,18 @@ def phase_kernels():
             log("kernels", f"flash_attention {name} {str(dtype)[6:]} "
                 f"shape {shape}: max_abs_err {err:.3e} ok")
 
-    q, k, v = rand_qkv(SMOLLM_SHAPE, torch.bfloat16, seed=100)
-    got = flash_attention(q, k, v, causal=True)
-    want = blockwise_attention(q, k, v, causal=True)
-    torch.cuda.synchronize()
-    err = (got.float() - want.float()).abs().max().item()
-    torch.testing.assert_close(got.float(), want.float(),
-                               **TOL[torch.bfloat16])
+    errs = {}
+    for dtype, tol in ((torch.float32, TOL[torch.float32]),
+                       (torch.bfloat16, SMOLLM_BF16_TOL)):
+        q, k, v = rand_qkv(SMOLLM_SHAPE, dtype, seed=100)
+        got = flash_attention(q, k, v, causal=True)
+        want = blockwise_attention(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        errs[dtype] = (got.float() - want.float()).abs().max().item()
+        log("kernels", f"flash_attention smollm {str(dtype)[6:]} shape "
+            f"{SMOLLM_SHAPE}: max_abs_err {errs[dtype]:.3e} (limit {tol})")
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+    err = errs[torch.bfloat16]
     qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     kernel_ms = time_ms(lambda: flash_attention(q, k, v, causal=True))
@@ -198,6 +211,7 @@ def phase_kernels():
     bound_ms, bound_by, flops, nbytes = attention_bound_ms(q, k, v, True)
     row = {"name": "flash_attention", "shape": list(SMOLLM_SHAPE),
            "dtype": "bfloat16", "causal": True, "max_abs_err": err,
+           "max_abs_err_f32": errs[torch.float32],
            "kernel_ms": kernel_ms, "plain_ms": plain_ms,
            "library_ms": library_ms, "bound_ms": bound_ms,
            "bound_by": bound_by, "flops": flops, "bytes": nbytes,

@@ -1,11 +1,10 @@
 """Build the port's CUDA sources and load them with ctypes.
 
-Each ``kernels/csrc/<name>.cu`` is compiled by its own ``nvcc`` process
-for Hopper (``sm_90a``) into a shared library with a plain C interface,
+Each ``kernels/csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper
+(``sm_90a``) into a shared library with a plain C interface,
 ``build/repro_torch/<name>-<hash>.so`` under the checkout, keyed by a
 hash of the source and the flags, so an edited source is rebuilt and an
-unchanged one is not. All missing libraries are compiled in parallel.
-A plain C interface keeps PyTorch's headers out of the build: seconds
+unchanged one is not. A plain C interface keeps PyTorch's headers out of the build: seconds
 per source instead of minutes.
 
 The build runs at first use (``load``); ``build()`` runs it up front.
@@ -57,35 +56,26 @@ def library_path(name: str) -> Path:
 
 def build(names=None) -> dict[str, Path]:
     """Compile every named source (default: all) whose library is
-    missing, one nvcc per source, all started together. Returns the
-    library path of each name; the compiler's output (register and
-    shared-memory use per kernel) is kept beside it as ``.log``."""
+    missing, one after another. Returns the library path of each name;
+    the compiler's output (register and shared-memory use per kernel)
+    is kept beside it as ``.log``."""
     srcs = sources()
     names = list(srcs) if names is None else list(names)
     out = {n: library_path(n) for n in names}
-    todo = {n: p for n, p in out.items() if not p.exists()}
-    if not todo:
-        return out
-    nvcc = find_nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for n, lib in todo.items():
-        tmp = lib.with_suffix(f".tmp{os.getpid()}.so")
-        log = open(lib.with_suffix(".log"), "w")
-        procs[n] = (subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(srcs[n])],
-            stdout=log, stderr=subprocess.STDOUT), tmp, log)
-    failed = []
-    for n, (proc, tmp, log) in procs.items():
-        rc = proc.wait()
-        log.close()
-        if rc == 0:
-            os.replace(tmp, todo[n])      # atomic: parallel builds agree
-        else:
-            failed.append(f"{n} (exit {rc}):\n"
-                          + todo[n].with_suffix(".log").read_text())
-    if failed:
-        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    todo = [n for n in names if not out[n].exists()]
+    if todo:
+        nvcc = find_nvcc()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    for n in todo:
+        tmp = out[n].with_suffix(f".tmp{os.getpid()}.so")
+        r = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(srcs[n])],
+                           capture_output=True, text=True)
+        log = r.stdout + r.stderr
+        out[n].with_suffix(".log").write_text(log)
+        if r.returncode:
+            raise RuntimeError(f"nvcc failed for {n} (exit {r.returncode}):"
+                               f"\n{log}")
+        os.replace(tmp, out[n])     # a library on disk is always whole
     return out
 
 

@@ -78,8 +78,9 @@ class Attention(nn.Module):
         self.cfg = cfg
 
     def forward(self, x, *, positions, window=None, cache=None, pos=None,
-                mode="train", causal=True, dtype=torch.bfloat16):
-        """x (B, S, D) → (out (B, S, D), cache)."""
+                mode="train", dtype=torch.bfloat16):
+        """x (B, S, D) → (out (B, S, D), cache). Causal: the port has no
+        encoder yet."""
         cfg = self.cfg
         B, S, D = x.shape
         H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
@@ -95,7 +96,7 @@ class Attention(nn.Module):
             if mode == "prefill":
                 _prefill_cache(cache["k"], k)
                 _prefill_cache(cache["v"], v)
-            out = ops.attention(q, k, v, causal=causal, window=window,
+            out = ops.attention(q, k, v, causal=True, window=window,
                                 softcap=cap, q_chunk=cfg.attn_chunk,
                                 kv_chunk=2 * cfg.attn_chunk)
         elif mode == "decode":

@@ -55,8 +55,7 @@ class Block(nn.Module):
         cfg = self.cfg
         h = rms_norm(x, self.ln1, cfg.norm_eps, plus_one=True)
         a, cache = self.attn(h, positions=positions, window=cfg.window,
-                             cache=cache, pos=pos, mode=mode,
-                             causal=not cfg.is_encoder, dtype=dtype)
+                             cache=cache, pos=pos, mode=mode, dtype=dtype)
         x = x + a
         h = rms_norm(x, self.ln2, cfg.norm_eps, plus_one=True)
         return x + self.mlp(h, cfg.act, dtype), cache
