@@ -5,15 +5,19 @@
 
 Phases, each printing its lines; any failure exits nonzero:
   1. device: the card's name and power limit; TF32 off.
-  2. build: every CUDA source of the port, one nvcc each.
-  3. kernels: each kernel against its plain PyTorch version on the card
-     at every tested variant and, in f32 and bf16, at the serve path's
-     shape, where it is then timed.
-  4. serve: full-width smollm-360m (seeded random weights) serves 8
-     requests of 900-1024 prompt tokens through ServeEngine; the kernel's
-     launch count over that run must be one per layer per prefill wave,
-     and the first wave's prefill logits must match the same model with
-     the plain attention.
+  2. build: every CUDA source of the port, one nvcc each, all started
+     together; registers and spills of each kernel.
+  3. kernels: each kernel (flash attention, WKV-6) against its plain
+     PyTorch version on the card at every tested variant and, in f32 and
+     bf16, at its serve path's shape, where it is then timed.
+  4. serve: full-width smollm-360m, then full-width rwkv6-3b (seeded
+     random weights), each serving 8 requests of 900-1024 prompt tokens
+     through ServeEngine. Every launch count is set to 0 just before a
+     path and read just after: the path's kernel must have launched once
+     per layer per prefill wave, the other kernel never. The first
+     wave's prefill logits must match the same model with the kernel's
+     plain version; for rwkv6-3b also the WKV states that prefill leaves
+     and the logits of the decode step after it.
 Then one JSON line of kernel numbers, and as the last line
 {"ok": true, "device": {...}}. Without a card it exits 1 and prints no
 result. Imports nothing of JAX.
@@ -35,6 +39,8 @@ import torch
 ROOT = Path(__file__).resolve().parent
 FLASH_SRC = "src/repro_torch/kernels/csrc/flash_attention.cu"
 FLASH_TPU = "src/repro/kernels/flash_attention/kernel.py:26"
+WKV6_SRC = "src/repro_torch/kernels/csrc/wkv6.cu"
+WKV6_TPU = "src/repro/kernels/rwkv6/kernel.py:21"
 H100_BF16_FLOPS = 989e12     # dense tensor-core peak, SXM data sheet
 H100_BYTES_PER_S = 3.35e12   # HBM3 peak
 
@@ -68,6 +74,41 @@ SMOLLM_BF16_TOL = dict(rtol=1e-2, atol=5e-3)
 # output are carried on and grow. The H100 reading is 2.78 of max
 # |logit| 296 (0.94%); the limit, 2e-2 of max |logit|, is about twice it.
 LOGIT_REL_TOL = 2e-2
+
+# WKV-6 variants (name, (B, S, H, K), chunk of the plain version, s0 or
+# not, share of decays set to 0): the JAX suite's shapes
+# (tests/test_kernels.py), then one step, a ragged length, a nonzero
+# initial state, the model's K=64, and vanishing decays (the plain
+# version clamps w at 1e-38, a subnormal).
+WKV_VARIANTS = [
+    ("s32_c16", (2, 32, 3, 16), 16, False, 0.0),
+    ("s70_c16", (2, 70, 3, 16), 16, False, 0.0),
+    ("s128_c32", (2, 128, 3, 16), 32, False, 0.0),
+    ("s1_state", (2, 1, 3, 16), 16, True, 0.0),
+    ("s77_state", (2, 77, 3, 16), 16, True, 0.0),
+    ("k32_s77_state", (2, 77, 3, 32), 16, True, 0.0),
+    ("k64_s100_state", (2, 100, 3, 64), 32, True, 0.0),
+    ("k64_decay0", (2, 70, 3, 64), 32, True, 0.25),
+]
+# The JAX suite's WKV limits (rtol = atol), on y and on the final state.
+WKV_TOL = {torch.float32: 2e-3, torch.bfloat16: 6e-2}
+RWKV_SHAPE = (4, 1024, 40, 64)     # rwkv6-3b prefill: B, S, H, K
+# At the serve shape in bf16 the two versions read the same bf16 inputs
+# and sum the same products in another order in f32 (the kernel as a
+# recurrence, the plain version in chunks through exp/log of the
+# decays), then round y once to bf16: they may differ by one bf16 step,
+# at most 2^-7 of |y| (under rtol). atol covers the f32 sums' own
+# difference near y = 0 (the f32 reading at this shape is 7.6e-5).
+RWKV_BF16_TOL = dict(rtol=1e-2, atol=5e-3)
+# rwkv6-3b first wave, kernel vs plain WKV through 32 layers of random
+# weights: prefill logits and decode-step logits are held to LOGIT_REL_TOL
+# of the largest |logit|, the WKV states that prefill leaves to these
+# shares of the largest |state|. In bf16 each limit is raised to twice
+# the plain version's own spread (chunk 16 against chunk 32) where that
+# is larger: there the logits read about 14% of the largest |logit| on
+# the H100, for the kernel and for plain 16 vs 32 alike.
+STATE_REL_TOL = 2e-2
+STATE_REL_TOL_F32 = 1e-3
 
 
 def log(phase, msg):
@@ -132,6 +173,39 @@ def attention_bound_ms(q, k, v, causal, window=None):
     t_ops, t_bytes = flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
+
+
+def wkv6_bound_ms(r, s0):
+    """Least time on an H100 for this call: r/k/v/w read once, y written
+    once, s0 read and sT written once, at the HBM rate, against the
+    matrix products of the chunked form (chunk 32) at the bf16
+    tensor-core peak."""
+    B, S, H, K = r.shape
+    Lc = min(32, S)
+    flops = 4.0 * B * H * S * (Lc * K + K * K)
+    nbytes = (5 * r.numel() * r.element_size()
+              + 2 * B * H * K * K * 4 + H * K * 4)
+    t_ops, t_bytes = flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
+
+
+def rand_wkv(shape, dtype, seed, state=True, zero_share=0.0, model_w=False):
+    """r, k, v, w in ``dtype``; u and s0 (or None) in f32. ``model_w``
+    draws the decays as rwkv6-3b's init does, exp(-exp(-4 + N(0, 1)))."""
+    B, S, H, K = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    r, k, v, x = (torch.randn(B, S, H, K, generator=g, device="cuda")
+                  for _ in range(4))
+    w = torch.exp(-torch.exp(x - 4.0 if model_w else 0.5 * x))
+    if zero_share:
+        keep = torch.rand(B, S, H, K, generator=g, device="cuda")
+        w = torch.where(keep < zero_share, 0.0, w)
+    u = (0.125 if model_w else 0.3) * torch.randn(H, K, generator=g,
+                                                  device="cuda")
+    s0 = (0.3 * torch.randn(B, H, K, K, generator=g, device="cuda")
+          if state else None)
+    return [t.to(dtype) for t in (r, k, v, w)], u, s0
 
 
 def rand_qkv(shape, dtype, seed):
@@ -220,10 +294,71 @@ def phase_kernels():
     return row
 
 
+def phase_wkv6():
+    from repro_torch.kernels.rwkv6.chunked import wkv6_chunked
+    from repro_torch.kernels.rwkv6.kernel import wkv6
+
+    def check(name, rkvw, u, s0, chunk, tol):
+        y, sT = wkv6(*rkvw, u, s0=s0)
+        want_y, want_s = wkv6_chunked(*rkvw, u, s0=s0, chunk=chunk)
+        torch.cuda.synchronize()
+        err_y = (y.float() - want_y.float()).abs().max().item()
+        err_s = (sT - want_s).abs().max().item()
+        log("kernels", f"wkv6 {name}: max_abs_err y {err_y:.3e} state "
+            f"{err_s:.3e} (limit {tol})")
+        assert torch.isfinite(y).all() and torch.isfinite(sT).all()
+        torch.testing.assert_close(y.float(), want_y.float(), **tol)
+        torch.testing.assert_close(sT, want_s, **tol)
+        return err_y, err_s
+
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = dict(rtol=WKV_TOL[dtype], atol=WKV_TOL[dtype])
+        for i, (name, shape, chunk, state, zeros) in enumerate(WKV_VARIANTS):
+            rkvw, u, s0 = rand_wkv(shape, dtype, seed=i, state=state,
+                                   zero_share=zeros)
+            check(f"{name} {str(dtype)[6:]} shape {shape} chunk {chunk}",
+                  rkvw, u, s0, chunk, tol)
+
+    errs = {}
+    for dtype, tol in ((torch.float32, dict(rtol=WKV_TOL[torch.float32],
+                                            atol=WKV_TOL[torch.float32])),
+                       (torch.bfloat16, RWKV_BF16_TOL)):
+        rkvw, u, _ = rand_wkv(RWKV_SHAPE, dtype, seed=100, model_w=True)
+        s0 = torch.zeros(RWKV_SHAPE[0], RWKV_SHAPE[2], RWKV_SHAPE[3],
+                         RWKV_SHAPE[3], device="cuda")
+        errs[dtype] = check(f"rwkv6-3b {str(dtype)[6:]} shape {RWKV_SHAPE}",
+                            rkvw, u, s0, 32, tol)
+    kernel_ms = time_ms(lambda: wkv6(*rkvw, u, s0=s0))
+    plain_ms = time_ms(lambda: wkv6_chunked(*rkvw, u, s0=s0, chunk=32))
+    bound_ms, bound_by, flops, nbytes = wkv6_bound_ms(rkvw[0], s0)
+    row = {"name": "wkv6", "shape": list(RWKV_SHAPE), "dtype": "bfloat16",
+           "max_abs_err": errs[torch.bfloat16][0],
+           "max_abs_err_state": errs[torch.bfloat16][1],
+           "max_abs_err_f32": errs[torch.float32][0],
+           "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": None,
+           "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
+           "bytes": nbytes, "gbytes_per_s": nbytes / kernel_ms / 1e6}
+    log("kernels", "rwkv6-3b prefill shape " + json.dumps(row))
+    return row
+
+
+def reset_launch_counts():
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.kernels.rwkv6.kernel import wkv6
+    flash_attention.launches = 0
+    wkv6.launches = 0
+
+
+def launch_counts():
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.kernels.rwkv6.kernel import wkv6
+    return {"flash_attention": flash_attention.launches,
+            "wkv6": wkv6.launches}
+
+
 def phase_serve():
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import blockwise, ops
-    from repro_torch.kernels.flash_attention.kernel import flash_attention
     from repro_torch.models import forward, init_caches, init_model
     from repro_torch.serve import ServeEngine
 
@@ -244,17 +379,19 @@ def phase_serve():
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    flash_attention.launches = 0
+    reset_launch_counts()
     t0 = time.perf_counter()
     outs = engine.generate(prompts, max_new_tokens=new_tokens)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = flash_attention.launches
+    counts = launch_counts()
+    launches = counts["flash_attention"]
     peak = torch.cuda.max_memory_allocated()
 
     assert launches == cfg.n_layers * n_waves, (
         f"flash_attention launched {launches} times, expected "
         f"{cfg.n_layers} layers x {n_waves} prefill waves")
+    assert counts["wkv6"] == 0, counts
     assert len(outs) == len(prompts)
     assert all(len(o) == new_tokens for o in outs)
     assert all(0 <= t < cfg.vocab_size for o in outs for t in o)
@@ -313,6 +450,151 @@ def phase_serve():
     return launches
 
 
+def phase_serve_rwkv6():
+    from repro_torch.configs import get_config
+    from repro_torch.models import forward, init_caches, init_model
+    from repro_torch.serve import ServeEngine
+
+    cfg = get_config("rwkv6-3b")
+    t0 = time.perf_counter()
+    model = init_model(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    engine = ServeEngine(cfg, model, batch_size=4, device="cuda")
+    rng = np.random.default_rng(0)
+    lengths = rng.integers(900, 1025, 8)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in lengths]
+    new_tokens = 16
+    n_waves = math.ceil(len(prompts) / engine.B)
+    log("serve", f"{cfg.name}: {n_params} parameters ({cfg.dtype}, drawn "
+        f"in {init_s:.1f}s), {len(prompts)} requests, prompt lengths "
+        f"{lengths.tolist()}, {n_waves} waves of {engine.B}")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    outs = engine.generate(prompts, max_new_tokens=new_tokens)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    launches = counts["wkv6"]
+    peak = torch.cuda.max_memory_allocated()
+
+    assert launches == cfg.n_layers * n_waves, (
+        f"wkv6 launched {launches} times, expected {cfg.n_layers} layers "
+        f"x {n_waves} prefill waves")
+    assert counts["flash_attention"] == 0, counts
+    assert len(outs) == len(prompts)
+    assert all(len(o) == new_tokens for o in outs)
+    assert all(0 <= t < cfg.vocab_size for o in outs for t in o)
+
+    # First wave: prefill and one decode step with the kernel, against
+    # the same with the plain chunked WKV, on the bf16 model that served
+    # and on the same seeded weights in f32.
+    toks = torch.from_numpy(engine.pad_wave(prompts[:engine.B])).cuda()
+    step = torch.tensor([o[0] for o in outs[:engine.B]], device="cuda")
+    step = step[:, None]
+    bf16 = compare_wkv_paths(model, cfg, toks, step, engine.capacity)
+    check_wkv_paths(cfg, bf16, spread=True)
+
+    # Where a warm prefill of the first wave and one decode step after it
+    # spend their time.
+    with torch.inference_mode():
+        caches = init_caches(cfg, engine.B, engine.capacity)
+        prefill = device_breakdown(lambda: forward(
+            model, {"tokens": toks}, mode="prefill", caches=caches))
+        decode = device_breakdown(lambda: forward(
+            model, {"tokens": step}, mode="decode", caches=caches,
+            pos=toks.shape[1]))
+    log("serve", "profile prefill " + json.dumps(prefill))
+    log("serve", "profile decode step " + json.dumps(decode))
+
+    pre = engine.timings["prefill_s"]
+    dec_s = engine.timings["decode_s"]
+    gen_tokens = sum(len(o) for o in outs)
+    row = {"arch": cfg.name, "requests": len(prompts),
+           "prompt_tokens": int(lengths.sum()), "new_tokens": new_tokens,
+           "waves": n_waves, "wkv6_launches": launches,
+           "prefill_ms": [1e3 * s for s in pre],
+           "decode_ms_per_token": 1e3 * statistics.median(dec_s),
+           "wall_s": wall, "tokens_per_s": gen_tokens / wall,
+           "prompt_tokens_per_s": int(lengths.sum()) / sum(pre),
+           "max_memory_allocated_bytes": peak,
+           "first_tokens": outs[0][:8]}
+    log("serve", json.dumps(row))
+
+    del engine, model, bf16
+    torch.cuda.empty_cache()
+    cfg32 = cfg.replace(dtype="float32")
+    model32 = init_model(cfg32, seed=0, device="cuda")
+    check_wkv_paths(cfg32, compare_wkv_paths(model32, cfg32, toks, step, 0),
+                    spread=False)
+    return launches
+
+
+def compare_wkv_paths(model, cfg, toks, step, capacity):
+    """Prefill logits, the WKV states that prefill leaves and the logits
+    of one decode step after it, with the kernel ("kernel") and with the
+    plain chunked WKV at chunk 32 ("plain32") and 16 ("plain16")."""
+    from repro_torch.kernels.rwkv6 import ops
+    from repro_torch.kernels.rwkv6.chunked import wkv6_chunked
+    from repro_torch.models import forward, init_caches
+
+    def plain(size):
+        return lambda r, k, v, w, u, s0=None, chunk=32: wkv6_chunked(
+            r, k, v, w, u, s0=s0, chunk=size)
+
+    out = {}
+    kernel_wkv6 = ops.wkv6
+    with torch.inference_mode():
+        for name, op in (("kernel", kernel_wkv6), ("plain32", plain(32)),
+                         ("plain16", plain(16))):
+            caches = init_caches(cfg, toks.shape[0], capacity)
+            ops.wkv6 = op
+            try:
+                logits, _ = forward(model, {"tokens": toks}, mode="prefill",
+                                    caches=caches)
+            finally:
+                ops.wkv6 = kernel_wkv6
+            states = caches["layers"]["wkv"].clone()
+            dec, _ = forward(model, {"tokens": step}, mode="decode",
+                             caches=caches, pos=toks.shape[1])
+            out[name] = {"prefill logits": logits.float(),
+                         "WKV states": states, "decode-step logits":
+                         dec.float()}
+    return out
+
+
+def check_wkv_paths(cfg, out, spread):
+    """Kernel against plain32 for each output, within its limit times its
+    largest magnitude. With ``spread`` (bf16) the limit is the larger of
+    that and twice what moving the plain version from chunk 32 to 16
+    does: a bf16 model of random weights carries a one-step rounding
+    difference on through 32 layers and 1024 steps, whatever version
+    sums in which order."""
+    limits = {"prefill logits": LOGIT_REL_TOL,
+              "WKV states": STATE_REL_TOL if spread else STATE_REL_TOL_F32,
+              "decode-step logits": LOGIT_REL_TOL}
+    for key, rel in limits.items():
+        got, want = out["kernel"][key], out["plain32"][key]
+        assert torch.isfinite(got).all(), f"non-finite {key}"
+        scale = want.abs().max().item()
+        err = (got - want).abs().max().item()
+        plain_err = (out["plain16"][key] - want).abs().max().item()
+        limit = max(rel * scale, 2 * plain_err) if spread else rel * scale
+        msg = (f"{cfg.dtype} {key} kernel vs plain32: max_abs_err "
+               f"{err:.4e} of max |x| {scale:.4g} ({err / scale:.3e}); "
+               f"plain16 vs plain32 {plain_err:.4e}; limit {limit:.4e}")
+        if key != "WKV states":
+            agree = (got[:, -1].argmax(-1) == want[:, -1].argmax(-1))
+            msg += f"; last-position argmax agreement {agree.float().mean():.2f}"
+        log("serve", msg)
+        assert err <= limit, msg
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -321,14 +603,19 @@ def main():
     sys.path.insert(0, str(ROOT / "src"))
     card = phase_device()
     phase_build()
-    k = phase_kernels()
-    launches = phase_serve()
+    rows = {"flash_attention": phase_kernels(), "wkv6": phase_wkv6()}
+    launches = {"flash_attention": phase_serve(),
+                "wkv6": phase_serve_rwkv6()}
     kernels = [{
-        "name": "flash_attention", "route": "cuda", "source": FLASH_SRC,
-        "replaces": FLASH_TPU, "launches": launches,
-        "max_abs_err": k["max_abs_err"], "ms": k["kernel_ms"],
-        "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-        "bound_by": k["bound_by"], "library_ms": k["library_ms"]}]
+        "name": name, "route": "cuda", "source": src, "replaces": tpu,
+        "launches": launches[name],
+        "max_abs_err": rows[name]["max_abs_err"],
+        "ms": rows[name]["kernel_ms"], "plain_ms": rows[name]["plain_ms"],
+        "bound_ms": rows[name]["bound_ms"],
+        "bound_by": rows[name]["bound_by"],
+        "library_ms": rows[name]["library_ms"]}
+        for name, src, tpu in (("flash_attention", FLASH_SRC, FLASH_TPU),
+                               ("wkv6", WKV6_SRC, WKV6_TPU))]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -20,10 +20,9 @@ ARCHS = (
     "hubert-xlarge",
 )
 
-PORTED = ("smollm-360m",)
+PORTED = ("smollm-360m", "rwkv6-3b")
 
 _LATER = {
-    "rwkv6-3b": "slice 2 (rwkv6-3b serve with the WKV6 kernel)",
     "zamba2-2.7b": "slice 3 (zamba2-2.7b serve with the SSD scan kernel)",
 }
 _ZOO = "the model-zoo slice after the paper engines"

@@ -56,9 +56,9 @@ def library_path(name: str) -> Path:
 
 def build(names=None) -> dict[str, Path]:
     """Compile every named source (default: all) whose library is
-    missing, one after another. Returns the library path of each name;
-    the compiler's output (register and shared-memory use per kernel)
-    is kept beside it as ``.log``."""
+    missing, one ``nvcc`` per source, all started together. Returns the
+    library path of each name; the compiler's output (register and
+    shared-memory use per kernel) is kept beside it as ``.log``."""
     srcs = sources()
     names = list(srcs) if names is None else list(names)
     out = {n: library_path(n) for n in names}
@@ -66,16 +66,22 @@ def build(names=None) -> dict[str, Path]:
     if todo:
         nvcc = find_nvcc()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    for n in todo:
-        tmp = out[n].with_suffix(f".tmp{os.getpid()}.so")
-        r = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(srcs[n])],
-                           capture_output=True, text=True)
-        log = r.stdout + r.stderr
+    tmps = {n: out[n].with_suffix(f".tmp{os.getpid()}.so") for n in todo}
+    procs = {n: subprocess.Popen(
+        [nvcc, *NVCC_FLAGS, "-o", str(tmps[n]), str(srcs[n])],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for n in todo}
+    failed = []
+    for n, proc in procs.items():
+        log = proc.communicate()[0]
         out[n].with_suffix(".log").write_text(log)
-        if r.returncode:
-            raise RuntimeError(f"nvcc failed for {n} (exit {r.returncode}):"
-                               f"\n{log}")
-        os.replace(tmp, out[n])     # a library on disk is always whole
+        if proc.returncode:
+            failed.append(f"nvcc failed for {n} (exit {proc.returncode}):"
+                          f"\n{log}")
+        else:
+            os.replace(tmps[n], out[n])   # a library on disk is always whole
+    if failed:
+        raise RuntimeError("\n".join(failed))
     return out
 
 

@@ -1,9 +1,10 @@
 """Serving entry point: batched generation with the port's ServeEngine.
 
-On the card (the default):
+On the card (the default), for either ported arch:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m
-On the CPU, with the plain attention:
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b
+On the CPU, with the kernels' plain versions, at the reduced size:
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \
         --reduced --device cpu
 """
 from __future__ import annotations

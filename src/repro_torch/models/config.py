@@ -88,6 +88,10 @@ class ModelConfig:
         return max(1, self.n_heads // max(self.n_kv_heads, 1))
 
     @property
+    def rwkv_heads(self) -> int:
+        return self.d_model // self.rwkv_head_dim
+
+    @property
     def padded_vocab(self) -> int:
         """Vocab padded to a shardable multiple (Megatron-style)."""
         m = 256

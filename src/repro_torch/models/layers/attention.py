@@ -21,7 +21,7 @@ import torch
 from torch import nn
 
 from ...kernels.flash_attention import ops
-from .common import rope, softcap
+from .common import rope, softcap, weight
 
 NEG_INF = -2.0e38
 
@@ -70,9 +70,7 @@ class Attention(nn.Module):
         D, H, KV, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
 
         def w(*shape):
-            return nn.Parameter(torch.empty(shape, dtype=dtype,
-                                            device=device),
-                                requires_grad=False)
+            return weight(*shape, dtype=dtype, device=device)
         self.wq, self.wk, self.wv = w(D, H, Dh), w(D, KV, Dh), w(D, KV, Dh)
         self.wo = w(H, Dh, D)
         self.cfg = cfg

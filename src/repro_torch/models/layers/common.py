@@ -3,6 +3,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 
 def rms_norm(x, scale, eps: float = 1e-5, plus_one: bool = False):
@@ -13,6 +14,13 @@ def rms_norm(x, scale, eps: float = 1e-5, plus_one: bool = False):
     y = x32 * torch.rsqrt(var + eps)
     s = (1.0 + scale.float()) if plus_one else scale.float()
     return (y * s).to(x.dtype)
+
+
+def weight(*shape, dtype, device):
+    """An uninitialised, frozen parameter (drawn by ``init_model`` or
+    loaded from converted JAX weights)."""
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
+                        requires_grad=False)
 
 
 def act_fn(name: str):

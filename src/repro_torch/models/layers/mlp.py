@@ -4,12 +4,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .common import act_fn
-
-
-def _weight(*shape, dtype, device):
-    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
-                        requires_grad=False)
+from .common import act_fn, weight
 
 
 class MLP(nn.Module):
@@ -18,9 +13,9 @@ class MLP(nn.Module):
 
     def __init__(self, d_in: int, d_ff: int, d_out: int, dtype, device):
         super().__init__()
-        self.w_gate = _weight(d_in, d_ff, dtype=dtype, device=device)
-        self.w_up = _weight(d_in, d_ff, dtype=dtype, device=device)
-        self.w_down = _weight(d_ff, d_out, dtype=dtype, device=device)
+        self.w_gate = weight(d_in, d_ff, dtype=dtype, device=device)
+        self.w_up = weight(d_in, d_ff, dtype=dtype, device=device)
+        self.w_down = weight(d_ff, d_out, dtype=dtype, device=device)
 
     def forward(self, x, act: str = "silu", dtype=torch.bfloat16):
         x = x.to(dtype)

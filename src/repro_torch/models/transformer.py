@@ -1,12 +1,14 @@
-"""Model assembly: the ``dense`` family (attention + gated MLP blocks).
+"""Model assembly: the ``dense`` family (attention + gated MLP blocks)
+and the ``ssm`` family (RWKV-6 time-mix + channel-mix blocks).
 
 ``init_model(cfg, seed, device) → Transformer`` (an ``nn.Module`` with a
 ``ModuleList`` of blocks) and ``forward(model, batch, mode, caches, pos)
 → (logits, caches)``. Matmul weights and the embedding are stored in the
 compute dtype ``cfg.dtype``: the JAX package keeps them in
 ``param_dtype`` and casts them at every use, which gives the same values.
-Norm scales stay f32. Other families, and dense options no ported arch
-uses yet, raise ``NotImplementedError``.
+Norm scales, and the RWKV weights the JAX layer computes with in f32,
+stay f32. Other families, and options no ported arch uses yet, raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -16,15 +18,20 @@ from torch import nn
 from ..device import resolve_device
 from .config import ModelConfig
 from .layers.attention import Attention
-from .layers.common import dense_init, rms_norm, softcap
+from .layers.common import dense_init, rms_norm, softcap, weight
 from .layers.mlp import MLP
+from .layers.rwkv6 import ChannelMix, TimeMix, init_rwkv_state
+
+# family -> the attention type the port serves it with
+_FAMILIES = {"dense": "gqa", "ssm": "none"}
+_RWKV_STATE = ("shift_t", "shift_c", "wkv")
 
 
 def _check_supported(cfg: ModelConfig):
     unsupported = {
-        "family": cfg.family != "dense",
+        "family": cfg.family not in _FAMILIES,
         "local_global_period": bool(cfg.local_global_period),
-        "attn_type": cfg.attn_type != "gqa",
+        "attn_type": cfg.attn_type != _FAMILIES.get(cfg.family),
         "qk_norm": cfg.qk_norm,
         "is_encoder": cfg.is_encoder,
         "frontend": cfg.frontend is not None,
@@ -33,13 +40,13 @@ def _check_supported(cfg: ModelConfig):
     bad = [k for k, v in unsupported.items() if v]
     if bad:
         raise NotImplementedError(
-            f"{cfg.name}: the port serves the dense GQA family only so far; "
+            f"{cfg.name}: the port serves the dense GQA and the RWKV-6 ssm "
+            "families only so far; "
             f"unsupported: {', '.join(bad)} (ROADMAP.md, queue A)")
 
 
 def _f32_param(n, device):
-    return nn.Parameter(torch.empty(n, dtype=torch.float32, device=device),
-                        requires_grad=False)
+    return weight(n, dtype=torch.float32, device=device)
 
 
 class Block(nn.Module):
@@ -61,6 +68,28 @@ class Block(nn.Module):
         return x + self.mlp(h, cfg.act, dtype), cache
 
 
+class RWKVBlock(nn.Module):
+    """ln1 → time mix → residual, ln2 → channel mix → residual."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__()
+        self.ln1 = _f32_param(cfg.d_model, device)
+        self.ln2 = _f32_param(cfg.d_model, device)
+        self.time = TimeMix(cfg, dtype, device)
+        self.chan = ChannelMix(cfg, dtype, device)
+        self.cfg = cfg
+
+    def forward(self, x, *, state, mode, dtype):
+        """Returns (x, new state {"shift_t", "shift_c", "wkv"} or None)."""
+        cfg = self.cfg
+        h = rms_norm(x, self.ln1, cfg.norm_eps, plus_one=True)
+        t, new_t = self.time(h, state=state, mode=mode, dtype=dtype)
+        x = x + t
+        h = rms_norm(x, self.ln2, cfg.norm_eps, plus_one=True)
+        c, new_c = self.chan(h, state=state, mode=mode, dtype=dtype)
+        return x + c, (None if new_t is None else {**new_t, **new_c})
+
+
 class Transformer(nn.Module):
     """Parameters are allocated uninitialised; ``init_model`` draws them,
     ``load_state_dict(convert.from_jax_params(...))`` copies them."""
@@ -71,31 +100,22 @@ class Transformer(nn.Module):
         self.cfg = cfg
         self.dtype = getattr(torch, cfg.dtype)
         Vp, D = cfg.padded_vocab, cfg.d_model
-        self.embed = nn.Parameter(torch.empty(Vp, D, dtype=self.dtype,
-                                              device=device),
-                                  requires_grad=False)
+        self.embed = weight(Vp, D, dtype=self.dtype, device=device)
         self.final_norm = _f32_param(D, device)
         if not cfg.tie_embeddings:
-            self.lm_head = nn.Parameter(torch.empty(D, Vp, dtype=self.dtype,
-                                                    device=device),
-                                        requires_grad=False)
-        self.blocks = nn.ModuleList(Block(cfg, self.dtype, device)
+            self.lm_head = weight(D, Vp, dtype=self.dtype, device=device)
+        block = RWKVBlock if cfg.family == "ssm" else Block
+        self.blocks = nn.ModuleList(block(cfg, self.dtype, device)
                                     for _ in range(cfg.n_layers))
 
     def forward(self, tokens, *, mode="train", caches=None, pos=None):
         """tokens (B, S) → (logits (B, S, padded_vocab), caches)."""
         cfg, dtype = self.cfg, self.dtype
-        B, S = tokens.shape
         x = self.embed[tokens].to(dtype)
-        if mode == "decode":
-            positions = torch.full((B, 1), pos, device=tokens.device)
+        if cfg.family == "ssm":
+            x = self._rwkv_blocks(x, caches, mode)
         else:
-            positions = torch.arange(S, device=tokens.device)[None, :]
-        for i, blk in enumerate(self.blocks):
-            cache = None if caches is None else {
-                "k": caches["layers"]["k"][i], "v": caches["layers"]["v"][i]}
-            x, _ = blk(x, positions=positions, cache=cache, pos=pos,
-                       mode=mode, dtype=dtype)
+            x = self._attention_blocks(x, caches, mode, pos)
         x = rms_norm(x, self.final_norm, cfg.norm_eps, plus_one=True)
         head = self.embed.T if cfg.tie_embeddings else self.lm_head
         logits = softcap(x.to(dtype) @ head.to(dtype),
@@ -106,12 +126,38 @@ class Transformer(nn.Module):
             logits = logits.masked_fill(pad, -1e9)
         return logits, caches
 
+    def _attention_blocks(self, x, caches, mode, pos):
+        B, S = x.shape[:2]
+        if mode == "decode":
+            positions = torch.full((B, 1), pos, device=x.device)
+        else:
+            positions = torch.arange(S, device=x.device)[None, :]
+        for i, blk in enumerate(self.blocks):
+            cache = None if caches is None else {
+                "k": caches["layers"]["k"][i], "v": caches["layers"]["v"][i]}
+            x, _ = blk(x, positions=positions, cache=cache, pos=pos,
+                       mode=mode, dtype=self.dtype)
+        return x
+
+    def _rwkv_blocks(self, x, caches, mode):
+        """Each block reads its state from the stacked caches and its new
+        state is copied back in place (the JAX scan returns new arrays)."""
+        for i, blk in enumerate(self.blocks):
+            state = None if caches is None else {
+                n: caches["layers"][n][i] for n in _RWKV_STATE}
+            x, new = blk(x, state=state, mode=mode, dtype=self.dtype)
+            if state is not None and new is not None:
+                for n in _RWKV_STATE:
+                    state[n].copy_(new[n])
+        return x
+
 
 def init_model(cfg: ModelConfig, seed: int = 0, device=None) -> Transformer:
     """Random weights from ``torch.Generator(device).manual_seed(seed)``,
     with the JAX package's init: truncated-normal fan-in matrices, the
-    embedding scaled by √D, zero norm scales (stored as offsets from 1).
-    ``device=None`` means the card."""
+    embedding scaled by √D, zero norm scales (stored as offsets from 1);
+    for RWKV-6 also the mixes at 0.5, the base decay ``w0`` at -4 and
+    ``ln_x`` at 1. ``device=None`` means the card."""
     device = resolve_device(device)
     model = Transformer(cfg, device)
     g = torch.Generator(device=device).manual_seed(seed)
@@ -126,27 +172,53 @@ def init_model(cfg: ModelConfig, seed: int = 0, device=None) -> Transformer:
         if not cfg.tie_embeddings:
             fill(model.lm_head, D)
         model.final_norm.zero_()
-        H, Dh = cfg.n_heads, cfg.d_head
         for blk in model.blocks:
             blk.ln1.zero_()
             blk.ln2.zero_()
+            if cfg.family == "ssm":
+                _init_rwkv_block(blk, cfg, fill)
+                continue
             for w in (blk.attn.wq, blk.attn.wk, blk.attn.wv):
                 fill(w, D)
-            fill(blk.attn.wo, H * Dh)
+            fill(blk.attn.wo, cfg.n_heads * cfg.d_head)
             fill(blk.mlp.w_gate, D)
             fill(blk.mlp.w_up, D)
             fill(blk.mlp.w_down, cfg.d_ff)
     return model
 
 
+def _init_rwkv_block(blk: RWKVBlock, cfg: ModelConfig, fill):
+    D, tm, cm = cfg.d_model, blk.time, blk.chan
+    tm.mu_base.fill_(0.5)
+    fill(tm.mix_A, D)
+    fill(tm.mix_B, cfg.rwkv_mix_lora)
+    for w in (tm.wr, tm.wk, tm.wv, tm.wg, tm.wo):
+        fill(w, D)
+    tm.w0.fill_(-4.0)                     # base decay w ≈ exp(-e^-4)
+    fill(tm.decay_A, D)
+    fill(tm.decay_B, cfg.rwkv_decay_lora)
+    fill(tm.u, cfg.rwkv_head_dim)
+    tm.ln_x.fill_(1.0)
+    cm.cmix_mu.fill_(0.5)
+    fill(cm.ck, D)
+    fill(cm.cv, cfg.d_ff)
+    fill(cm.cr, D)
+
+
 def init_caches(cfg: ModelConfig, batch: int, capacity: int,
                 dtype=torch.bfloat16, device=None) -> dict:
     """Serving state for the whole model, stacked along the layer axis:
-    {"layers": {"k", "v": (L, B, C, KV, Dh)}}. The cache is bf16 by
-    default even when ``cfg.dtype`` is f32, as in the JAX package.
-    ``device=None`` means the card."""
+    dense {"layers": {"k", "v": (L, B, C, KV, Dh)}}; ssm {"layers":
+    {"shift_t", "shift_c": (L, B, D), "wkv": (L, B, H, K, K) f32}}, a
+    constant size whatever ``capacity``. The cache (the token shifts for
+    ssm) is bf16 by default even when ``cfg.dtype`` is f32, as in the
+    JAX package. ``device=None`` means the card."""
     _check_supported(cfg)
     device = resolve_device(device)
+    if cfg.family == "ssm":
+        one = init_rwkv_state(cfg, batch, dtype, device)
+        return {"layers": {n: t.new_zeros((cfg.n_layers, *t.shape))
+                           for n, t in one.items()}}
     cap = capacity if cfg.window is None else min(capacity, cfg.window)
     shape = (cfg.n_layers, batch, cap, cfg.n_kv_heads, cfg.d_head)
     return {"layers": {n: torch.zeros(shape, dtype=dtype, device=device)

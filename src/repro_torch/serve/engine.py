@@ -1,7 +1,9 @@
 """Batched serving engine: prefill + decode over a fixed request batch
 with greedy or temperature sampling. Prompt lists longer than the batch
-run in waves. Runs eagerly; on the card, prefill attention goes through
-the CUDA flash kernel.
+run in waves. Runs eagerly; on the card, prefill goes through the CUDA
+kernels (flash attention for the dense family, WKV-6 for RWKV-6). The
+RWKV-6 state has a constant size, so ``capacity`` matters to the
+attention cache only.
 """
 from __future__ import annotations
 

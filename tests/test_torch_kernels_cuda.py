@@ -1,4 +1,4 @@
-"""What ``chip_smoke.py`` does not cover of the port's CUDA kernels: the
+"""What ``chip_smoke.py`` does not cover of the port's CUDA kernels: each
 kernel on strided views, its rejects, one launch per call, and the
 build. (The kernel against its plain version at every variant, in both
 dtypes, is ``chip_smoke.py``'s kernel phase.) The ``cuda``-marked tests
@@ -13,8 +13,11 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.blockwise import blockwise_attention
 from repro_torch.kernels.flash_attention.kernel import flash_attention
+from repro_torch.kernels.rwkv6.chunked import wkv6_chunked
+from repro_torch.kernels.rwkv6.kernel import wkv6
 
 F32_TOL = dict(rtol=3e-5, atol=1.2e-4)
+WKV_F32_TOL = dict(rtol=2e-3, atol=2e-3)   # the JAX suite's WKV limit
 
 
 @pytest.fixture
@@ -51,6 +54,51 @@ def test_flash_kernel_rejects_bad_inputs(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         qt = q.transpose(-1, -2)
         flash_attention(qt, qt, qt)
+
+
+@pytest.mark.cuda
+def test_wkv6_kernel_reads_strided_views(cuda):
+    """r/k/v/w as head views of one fused (B, S, 4·H·K) projection, from
+    a nonzero state; y and the final state; one launch per call."""
+    B, S, H, K = 2, 70, 3, 64
+    g = torch.Generator(device=cuda).manual_seed(2)
+    proj = torch.randn(B, S, 4 * H * K, generator=g, device=cuda)
+    r, k, v, w = (t.unflatten(-1, (H, K)) for t in proj.chunk(4, dim=-1))
+    w = torch.exp(-torch.exp(0.5 * w))
+    u = 0.3 * torch.randn(H, K, generator=g, device=cuda)
+    s0 = 0.3 * torch.randn(B, H, K, K, generator=g, device=cuda)
+    assert not r.is_contiguous()
+    before = wkv6.launches
+    y, sT = wkv6(r, k, v, w, u, s0=s0)
+    assert wkv6.launches == before + 1
+    want_y, want_s = wkv6_chunked(r, k, v, w, u, s0=s0, chunk=32)
+    torch.testing.assert_close(y, want_y, **WKV_F32_TOL)
+    torch.testing.assert_close(sT, want_s, **WKV_F32_TOL)
+
+
+@pytest.mark.cuda
+def test_wkv6_kernel_rejects_bad_inputs(cuda):
+    r = torch.zeros(1, 8, 2, 16, device=cuda)
+    u = torch.zeros(2, 16, device=cuda)
+    with pytest.raises(ValueError, match="dtype"):
+        wkv6(r, r.bfloat16(), r, r, u)
+    r24 = torch.zeros(1, 8, 2, 24, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        wkv6(r24, r24, r24, r24, torch.zeros(2, 24, device=cuda))
+    with pytest.raises(ValueError, match="s0"):
+        wkv6(r, r, r, r, u, s0=torch.zeros(1, 2, 16, 16, device=cuda,
+                                           dtype=torch.bfloat16))
+    odd = torch.zeros(1, 8, 2, 17, device=cuda)[..., 1:]
+    with pytest.raises(ValueError, match="aligned"):
+        wkv6(odd, r, r, r, u)
+
+
+def test_wkv6_kernel_rejects_cpu_tensors():
+    """The kernel never takes CPU tensors (``ops.wkv6`` sends those to
+    the plain version); the check comes before any build or launch."""
+    r = torch.zeros(1, 8, 2, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        wkv6(r, r, r, r, torch.zeros(2, 16))
 
 
 def test_build_without_nvcc_raises_clearly(tmp_path, monkeypatch):

@@ -123,5 +123,5 @@ def test_convert_rejects_wrong_depth(f32):
 
 
 def test_unported_arch_names_its_slice():
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        get_config("rwkv6-3b")
+    with pytest.raises(NotImplementedError, match="slice 3"):
+        get_config("zamba2-2.7b")
