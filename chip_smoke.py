@@ -7,17 +7,19 @@ Phases, each printing its lines; any failure exits nonzero:
   1. device: the card's name and power limit; TF32 off.
   2. build: every CUDA source of the port, one nvcc each, all started
      together; registers and spills of each kernel.
-  3. kernels: each kernel (flash attention, WKV-6) against its plain
-     PyTorch version on the card at every tested variant and, in f32 and
-     bf16, at its serve path's shape, where it is then timed.
-  4. serve: full-width smollm-360m, then full-width rwkv6-3b (seeded
+  3. kernels: each kernel (flash attention, WKV-6, the Mamba-2 SSD scan)
+     against its plain PyTorch version on the card at every tested
+     variant and, in f32 and bf16, at its serve path's shape, where it is
+     then timed (flash also at zamba2-2.7b's shared-attention shape).
+  4. serve: full-width smollm-360m, rwkv6-3b and zamba2-2.7b (seeded
      random weights), each serving 8 requests of 900-1024 prompt tokens
      through ServeEngine. Every launch count is set to 0 just before a
-     path and read just after: the path's kernel must have launched once
-     per layer per prefill wave, the other kernel never. The first
-     wave's prefill logits must match the same model with the kernel's
-     plain version; for rwkv6-3b also the WKV states that prefill leaves
-     and the logits of the decode step after it.
+     path and read just after: each kernel of the path must have launched
+     once per layer (flash in zamba2: once per shared-attention group)
+     per prefill wave, the other kernels never. The first wave's prefill
+     logits must match the same model with the kernel's plain version;
+     for rwkv6-3b and zamba2-2.7b also the recurrent states that prefill
+     leaves and the logits of the decode step after it.
 Then one JSON line of kernel numbers, and as the last line
 {"ok": true, "device": {...}}. Without a card it exits 1 and prints no
 result. Imports nothing of JAX.
@@ -41,6 +43,8 @@ FLASH_SRC = "src/repro_torch/kernels/csrc/flash_attention.cu"
 FLASH_TPU = "src/repro/kernels/flash_attention/kernel.py:26"
 WKV6_SRC = "src/repro_torch/kernels/csrc/wkv6.cu"
 WKV6_TPU = "src/repro/kernels/rwkv6/kernel.py:21"
+SSD_SRC = "src/repro_torch/kernels/csrc/ssm_scan.cu"
+SSD_TPU = "src/repro/kernels/ssm_scan/kernel.py:24"
 H100_BF16_FLOPS = 989e12     # dense tensor-core peak, SXM data sheet
 H100_BYTES_PER_S = 3.35e12   # HBM3 peak
 
@@ -58,10 +62,16 @@ VARIANTS = [
     ("ragged77", dict(causal=True), (1, 77, 77, 4, 2, 16, 16)),
     ("ragged_cross50x77", dict(causal=False), (1, 50, 77, 4, 2, 16, 16)),
     ("d256", dict(causal=True), (1, 40, 40, 2, 1, 256, 256)),
+    # zamba2's shared attention: head dim 160, a window shorter than S
+    ("d160_window100", dict(causal=True, window=100),
+     (1, 300, 300, 4, 4, 160, 160)),
 ]
 TOL = {torch.float32: dict(rtol=3e-5, atol=1.2e-4),
        torch.bfloat16: dict(rtol=2e-2, atol=8e-2)}
 SMOLLM_SHAPE = (4, 1024, 1024, 15, 5, 64, 64)
+# zamba2-2.7b's shared attention in prefill (window 4096 > S: causal).
+ZAMBA_ATTN_SHAPE = (4, 1024, 1024, 32, 32, 160, 160)
+ZAMBA_WINDOW = 4096
 # At the serve path's shape (group of 3, 1024 keys) the kernel is held
 # to TOL[float32] in f32, and in bf16 to a limit near its reading: both
 # versions sum in f32 and round once to bf16, in another order, so an
@@ -100,15 +110,40 @@ RWKV_SHAPE = (4, 1024, 40, 64)     # rwkv6-3b prefill: B, S, H, K
 # at most 2^-7 of |y| (under rtol). atol covers the f32 sums' own
 # difference near y = 0 (the f32 reading at this shape is 7.6e-5).
 RWKV_BF16_TOL = dict(rtol=1e-2, atol=5e-3)
-# rwkv6-3b first wave, kernel vs plain WKV through 32 layers of random
-# weights: prefill logits and decode-step logits are held to LOGIT_REL_TOL
-# of the largest |logit|, the WKV states that prefill leaves to these
-# shares of the largest |state|. In bf16 each limit is raised to twice
-# the plain version's own spread (chunk 16 against chunk 32) where that
-# is larger: there the logits read about 14% of the largest |logit| on
-# the H100, for the kernel and for plain 16 vs 32 alike.
+# rwkv6-3b and zamba2-2.7b first wave, kernel vs plain version through
+# every layer of random weights: prefill logits and decode-step logits are
+# held to LOGIT_REL_TOL of the largest |logit|, the recurrent states that
+# prefill leaves to these shares of the largest |state|. In bf16 each
+# limit is raised to twice the plain versions' own spread where that is
+# larger: for rwkv6-3b plain chunk 16 against chunk 32 (the logits read
+# about 14% of the largest |logit| on the H100, for the kernel and for
+# plain 16 vs 32 alike); for zamba2-2.7b plain chunk 128 and the
+# sequential oracle against chunk 256. The two chunked SSD versions
+# share their cumulative sums of decays and flip few bf16 roundings
+# between them (4.8% of max |logit| on the H100), while any form that
+# multiplies the decays step by step, the oracle's or the kernel's,
+# flips about ten times as many and reads 30-45% (PERF.md, Findings).
 STATE_REL_TOL = 2e-2
 STATE_REL_TOL_F32 = 1e-3
+
+# SSD variants (name, (B, S, H, P, G, N), chunk of the plain version, h0
+# or not, scale of dt): the JAX suite's shapes (tests/test_kernels.py,
+# two state groups, N = 8), then one step, a ragged length, the model's
+# G = 1 at N = P = 64, and vanishing decays (dt·|a| up to ~100: exp(dt·a)
+# is a subnormal or 0).
+SSD_VARIANTS = [
+    ("jax_s64_c32", (2, 64, 4, 16, 2, 8), 32, False, 1.0),
+    ("jax_s100_c32", (2, 100, 4, 16, 2, 8), 32, False, 1.0),
+    ("jax_s256_c64", (2, 256, 4, 16, 2, 8), 64, False, 1.0),
+    ("s1_state", (2, 1, 4, 16, 2, 8), 32, True, 1.0),
+    ("s77_state", (2, 77, 4, 16, 2, 8), 32, True, 1.0),
+    ("g1_n64_p64_s100_state", (2, 100, 3, 64, 1, 64), 64, True, 1.0),
+    ("n64_decay0", (2, 70, 4, 64, 1, 64), 32, True, 40.0),
+]
+# The JAX suite's SSD limits (rtol = atol), on y and on the final state,
+# at every variant and at the serve shape.
+SSD_TOL = {torch.float32: 2e-3, torch.bfloat16: 6e-2}
+ZAMBA_SSD_SHAPE = (4, 1024, 80, 64, 1, 64)   # zamba2-2.7b: B, S, H, P, G, N
 
 
 def log(phase, msg):
@@ -188,6 +223,42 @@ def wkv6_bound_ms(r, s0):
     t_ops, t_bytes = flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
+
+
+def ssd_bound_ms(x, Bm, h0):
+    """Least time on an H100 for this call: x, dt, B, C (and h0 when
+    given) read once, y and hT written once, at the HBM rate, against the
+    matrix products of the chunked form (chunk 256; C·Bᵀ once per state
+    group) at the bf16 tensor-core peak."""
+    B, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    Lc = min(256, S)
+    nc = math.ceil(S / Lc)
+    flops = 2.0 * B * nc * Lc * (G * Lc * N + H * (Lc * P + 2 * N * P))
+    elt = x.element_size()
+    nbytes = (2 * x.numel() * elt + 4 * B * S * H + 2 * Bm.numel() * elt
+              + (1 if h0 is None else 2) * 4 * B * H * P * N + 2 * 4 * H)
+    t_ops, t_bytes = flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
+
+
+def rand_ssd(shape, dtype, seed, state=True, dt_scale=1.0):
+    """x, dt, a, B, C, D as the Mamba-2 layer passes them (x, B, C in
+    ``dtype``; dt = softplus of a normal draw, times ``dt_scale``, a < 0,
+    D in f32), and h0 (f32) or None."""
+    B, S, H, P, G, N = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*s):
+        return torch.randn(*s, generator=g, device="cuda")
+    x = randn(B, S, H, P).to(dtype)
+    dt = dt_scale * torch.nn.functional.softplus(randn(B, S, H))
+    a = -torch.exp(0.5 * randn(H))
+    Bm, Cm = randn(B, S, G, N).to(dtype), randn(B, S, G, N).to(dtype)
+    D = 0.1 * randn(H)
+    h0 = 0.3 * randn(B, H, P, N) if state else None
+    return (x, dt, a, Bm, Cm, D), h0
 
 
 def rand_wkv(shape, dtype, seed, state=True, zero_share=0.0, model_w=False):
@@ -291,6 +362,24 @@ def phase_kernels():
            "bound_by": bound_by, "flops": flops, "bytes": nbytes,
            "tflops": flops / kernel_ms / 1e9}
     log("kernels", "smollm prefill shape " + json.dumps(row))
+
+    # zamba2-2.7b's shared attention (head dim 160), timed only: it is
+    # held to the plain version at d160_window100 above.
+    q, k, v = rand_qkv(ZAMBA_ATTN_SHAPE, torch.bfloat16, seed=101)
+    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    kw = dict(causal=True, window=ZAMBA_WINDOW)
+    bound_ms, bound_by, flops, nbytes = attention_bound_ms(
+        q, k, v, True, ZAMBA_WINDOW)
+    zrow = {"name": "flash_attention", "shape": list(ZAMBA_ATTN_SHAPE),
+            "dtype": "bfloat16", "causal": True, "window": ZAMBA_WINDOW,
+            "kernel_ms": time_ms(lambda: flash_attention(q, k, v, **kw)),
+            "plain_ms": time_ms(lambda: blockwise_attention(q, k, v, **kw)),
+            "library_ms": time_ms(lambda: sdpa(qh, kh, vh, is_causal=True)),
+            "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
+            "bytes": nbytes}
+    zrow["tflops"] = flops / zrow["kernel_ms"] / 1e9
+    log("kernels", "zamba2 shared-attention prefill shape "
+        + json.dumps(zrow))
     return row
 
 
@@ -342,18 +431,70 @@ def phase_wkv6():
     return row
 
 
-def reset_launch_counts():
+def phase_ssd():
+    from repro_torch.kernels.ssm_scan.chunked import ssm_scan_chunked
+    from repro_torch.kernels.ssm_scan.kernel import ssm_scan
+
+    def check(name, args, h0, chunk, tol):
+        y, hT = ssm_scan(*args, h0=h0)
+        want_y, want_h = ssm_scan_chunked(*args, h0=h0, chunk=chunk)
+        torch.cuda.synchronize()
+        err_y = (y.float() - want_y.float()).abs().max().item()
+        err_h = (hT - want_h).abs().max().item()
+        log("kernels", f"ssm_scan {name}: max_abs_err y {err_y:.3e} state "
+            f"{err_h:.3e} (max |y| {want_y.float().abs().max().item():.3g}, "
+            f"limit rtol = atol = {tol})")
+        assert torch.isfinite(y).all() and torch.isfinite(hT).all()
+        torch.testing.assert_close(y.float(), want_y.float(), rtol=tol,
+                                   atol=tol)
+        torch.testing.assert_close(hT, want_h, rtol=tol, atol=tol)
+        return err_y, err_h
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for i, (name, shape, chunk, state, dt_scale) in enumerate(
+                SSD_VARIANTS):
+            args, h0 = rand_ssd(shape, dtype, seed=i, state=state,
+                                dt_scale=dt_scale)
+            check(f"{name} {str(dtype)[6:]} shape {shape} chunk {chunk}",
+                  args, h0, chunk, SSD_TOL[dtype])
+
+    errs = {}
+    B, _, H, P, _, N = ZAMBA_SSD_SHAPE
+    for dtype in (torch.float32, torch.bfloat16):
+        args, _ = rand_ssd(ZAMBA_SSD_SHAPE, dtype, seed=100, state=False)
+        h0 = torch.zeros(B, H, P, N, device="cuda")   # the serve path's
+        errs[dtype] = check(f"zamba2-2.7b {str(dtype)[6:]} shape "
+                            f"{ZAMBA_SSD_SHAPE}", args, h0, 256,
+                            SSD_TOL[dtype])
+    kernel_ms = time_ms(lambda: ssm_scan(*args, h0=h0))
+    plain_ms = time_ms(lambda: ssm_scan_chunked(*args, h0=h0, chunk=256))
+    bound_ms, bound_by, flops, nbytes = ssd_bound_ms(args[0], args[3], h0)
+    row = {"name": "ssm_scan", "shape": list(ZAMBA_SSD_SHAPE),
+           "dtype": "bfloat16", "max_abs_err": errs[torch.bfloat16][0],
+           "max_abs_err_state": errs[torch.bfloat16][1],
+           "max_abs_err_f32": errs[torch.float32][0],
+           "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": None,
+           "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
+           "bytes": nbytes, "gbytes_per_s": nbytes / kernel_ms / 1e6}
+    log("kernels", "zamba2-2.7b prefill shape " + json.dumps(row))
+    return row
+
+
+def _wrappers():
     from repro_torch.kernels.flash_attention.kernel import flash_attention
     from repro_torch.kernels.rwkv6.kernel import wkv6
-    flash_attention.launches = 0
-    wkv6.launches = 0
+    from repro_torch.kernels.ssm_scan.kernel import ssm_scan
+    return {"flash_attention": flash_attention, "wkv6": wkv6,
+            "ssm_scan": ssm_scan}
+
+
+def reset_launch_counts():
+    for fn in _wrappers().values():
+        fn.launches = 0
 
 
 def launch_counts():
-    from repro_torch.kernels.flash_attention.kernel import flash_attention
-    from repro_torch.kernels.rwkv6.kernel import wkv6
-    return {"flash_attention": flash_attention.launches,
-            "wkv6": wkv6.launches}
+    return {name: fn.launches for name, fn in _wrappers().items()}
 
 
 def phase_serve():
@@ -391,7 +532,7 @@ def phase_serve():
     assert launches == cfg.n_layers * n_waves, (
         f"flash_attention launched {launches} times, expected "
         f"{cfg.n_layers} layers x {n_waves} prefill waves")
-    assert counts["wkv6"] == 0, counts
+    assert counts["wkv6"] == counts["ssm_scan"] == 0, counts
     assert len(outs) == len(prompts)
     assert all(len(o) == new_tokens for o in outs)
     assert all(0 <= t < cfg.vocab_size for o in outs for t in o)
@@ -447,11 +588,13 @@ def phase_serve():
            "max_memory_allocated_bytes": peak,
            "first_tokens": outs[0][:8]}
     log("serve", json.dumps(row))
-    return launches
+    return counts
 
 
 def phase_serve_rwkv6():
     from repro_torch.configs import get_config
+    from repro_torch.kernels.rwkv6 import ops
+    from repro_torch.kernels.rwkv6.chunked import wkv6_chunked
     from repro_torch.models import forward, init_caches, init_model
     from repro_torch.serve import ServeEngine
 
@@ -486,7 +629,7 @@ def phase_serve_rwkv6():
     assert launches == cfg.n_layers * n_waves, (
         f"wkv6 launched {launches} times, expected {cfg.n_layers} layers "
         f"x {n_waves} prefill waves")
-    assert counts["flash_attention"] == 0, counts
+    assert counts["flash_attention"] == counts["ssm_scan"] == 0, counts
     assert len(outs) == len(prompts)
     assert all(len(o) == new_tokens for o in outs)
     assert all(0 <= t < cfg.vocab_size for o in outs for t in o)
@@ -497,8 +640,15 @@ def phase_serve_rwkv6():
     toks = torch.from_numpy(engine.pad_wave(prompts[:engine.B])).cuda()
     step = torch.tensor([o[0] for o in outs[:engine.B]], device="cuda")
     step = step[:, None]
-    bf16 = compare_wkv_paths(model, cfg, toks, step, engine.capacity)
-    check_wkv_paths(cfg, bf16, spread=True)
+    capacity = engine.capacity
+
+    versions = {f"plain{c}": with_chunk(wkv6_chunked, c) for c in (32, 16)}
+
+    def compare(m, c):
+        return compare_paths(m, c, toks, step, capacity, (ops, "wkv6"),
+                             versions, lambda caches: caches["layers"]["wkv"])
+    bf16 = compare(model, cfg)
+    check_paths(cfg, bf16, True, "plain32", "WKV")
 
     # Where a warm prefill of the first wave and one decode step after it
     # spend their time.
@@ -530,69 +680,179 @@ def phase_serve_rwkv6():
     torch.cuda.empty_cache()
     cfg32 = cfg.replace(dtype="float32")
     model32 = init_model(cfg32, seed=0, device="cuda")
-    check_wkv_paths(cfg32, compare_wkv_paths(model32, cfg32, toks, step, 0),
-                    spread=False)
-    return launches
+    check_paths(cfg32, compare(model32, cfg32), False, "plain32", "WKV")
+    return counts
 
 
-def compare_wkv_paths(model, cfg, toks, step, capacity):
-    """Prefill logits, the WKV states that prefill leaves and the logits
-    of one decode step after it, with the kernel ("kernel") and with the
-    plain chunked WKV at chunk 32 ("plain32") and 16 ("plain16")."""
-    from repro_torch.kernels.rwkv6 import ops
-    from repro_torch.kernels.rwkv6.chunked import wkv6_chunked
+def with_chunk(plain, size):
+    """``plain`` at chunk ``size``, called as the layer calls its op."""
+    return lambda *args, chunk=None, **kw: plain(*args, chunk=size, **kw)
+
+
+def compare_paths(model, cfg, toks, step, capacity, op, versions, states):
+    """Prefill logits, the recurrent states that prefill leaves and the
+    logits of one decode step after it, with the kernel ("kernel") and
+    with each of ``versions`` (label -> a plain version called as the op
+    is). ``op`` is the (module, name) of the public op the layer calls,
+    ``states`` a function of the caches giving the states."""
     from repro_torch.models import forward, init_caches
 
-    def plain(size):
-        return lambda r, k, v, w, u, s0=None, chunk=32: wkv6_chunked(
-            r, k, v, w, u, s0=s0, chunk=size)
-
+    module, name = op
+    kernel_op = getattr(module, name)
     out = {}
-    kernel_wkv6 = ops.wkv6
     with torch.inference_mode():
-        for name, op in (("kernel", kernel_wkv6), ("plain32", plain(32)),
-                         ("plain16", plain(16))):
+        for label, fn in [("kernel", kernel_op), *versions.items()]:
             caches = init_caches(cfg, toks.shape[0], capacity)
-            ops.wkv6 = op
+            setattr(module, name, fn)
             try:
                 logits, _ = forward(model, {"tokens": toks}, mode="prefill",
                                     caches=caches)
             finally:
-                ops.wkv6 = kernel_wkv6
-            states = caches["layers"]["wkv"].clone()
+                setattr(module, name, kernel_op)
+            st = states(caches).clone()
             dec, _ = forward(model, {"tokens": step}, mode="decode",
                              caches=caches, pos=toks.shape[1])
-            out[name] = {"prefill logits": logits.float(),
-                         "WKV states": states, "decode-step logits":
-                         dec.float()}
+            out[label] = {"prefill logits": logits.float(), "states": st,
+                          "decode-step logits": dec.float()}
     return out
 
 
-def check_wkv_paths(cfg, out, spread):
-    """Kernel against plain32 for each output, within its limit times its
-    largest magnitude. With ``spread`` (bf16) the limit is the larger of
-    that and twice what moving the plain version from chunk 32 to 16
-    does: a bf16 model of random weights carries a one-step rounding
-    difference on through 32 layers and 1024 steps, whatever version
-    sums in which order."""
+def check_paths(cfg, out, spread, ref, what):
+    """Kernel against the plain version ``ref`` for each output, within
+    its limit times its largest magnitude. With ``spread`` (bf16) the
+    limit is the larger of that and twice the largest distance from
+    ``ref`` of the other plain versions in ``out``: a bf16 model of
+    random weights carries a one-step rounding difference on through
+    every layer and 1024 steps, whatever version sums in which order."""
     limits = {"prefill logits": LOGIT_REL_TOL,
-              "WKV states": STATE_REL_TOL if spread else STATE_REL_TOL_F32,
+              "states": STATE_REL_TOL if spread else STATE_REL_TOL_F32,
               "decode-step logits": LOGIT_REL_TOL}
+    alts = [k for k in out if k not in ("kernel", ref)]
     for key, rel in limits.items():
-        got, want = out["kernel"][key], out["plain32"][key]
-        assert torch.isfinite(got).all(), f"non-finite {key}"
+        got, want = out["kernel"][key], out[ref][key]
+        name = f"{what} states" if key == "states" else key
+        assert torch.isfinite(got).all(), f"non-finite {name}"
         scale = want.abs().max().item()
         err = (got - want).abs().max().item()
-        plain_err = (out["plain16"][key] - want).abs().max().item()
-        limit = max(rel * scale, 2 * plain_err) if spread else rel * scale
-        msg = (f"{cfg.dtype} {key} kernel vs plain32: max_abs_err "
+        alt_err = {a: (out[a][key] - want).abs().max().item() for a in alts}
+        limit = (max(rel * scale, 2 * max(alt_err.values())) if spread
+                 else rel * scale)
+        msg = (f"{cfg.dtype} {name} kernel vs {ref}: max_abs_err "
                f"{err:.4e} of max |x| {scale:.4g} ({err / scale:.3e}); "
-               f"plain16 vs plain32 {plain_err:.4e}; limit {limit:.4e}")
-        if key != "WKV states":
+               + "; ".join(f"{a} vs {ref} {e:.4e}"
+                           for a, e in alt_err.items())
+               + f"; limit {limit:.4e}")
+        if key != "states":
             agree = (got[:, -1].argmax(-1) == want[:, -1].argmax(-1))
             msg += f"; last-position argmax agreement {agree.float().mean():.2f}"
         log("serve", msg)
         assert err <= limit, msg
+
+
+def phase_serve_zamba2():
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssm_scan import ops
+    from repro_torch.kernels.ssm_scan.chunked import ssm_scan_chunked
+    from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
+    from repro_torch.models import forward, init_caches, init_model
+    from repro_torch.serve import ServeEngine
+
+    cfg = get_config("zamba2-2.7b")
+    n_groups = cfg.n_layers // cfg.hybrid_attn_period
+    t0 = time.perf_counter()
+    model = init_model(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    engine = ServeEngine(cfg, model, batch_size=4, capacity=2048,
+                         device="cuda")
+    rng = np.random.default_rng(0)
+    lengths = rng.integers(900, 1025, 8)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in lengths]
+    new_tokens = 16
+    n_waves = math.ceil(len(prompts) / engine.B)
+    log("serve", f"{cfg.name}: {n_params} parameters ({cfg.dtype}, drawn "
+        f"in {init_s:.1f}s), {len(prompts)} requests, prompt lengths "
+        f"{lengths.tolist()}, {n_waves} waves of {engine.B}")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    outs = engine.generate(prompts, max_new_tokens=new_tokens)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+
+    assert counts["ssm_scan"] == cfg.n_layers * n_waves, (
+        f"ssm_scan launched {counts['ssm_scan']} times, expected "
+        f"{cfg.n_layers} layers x {n_waves} prefill waves")
+    assert counts["flash_attention"] == n_groups * n_waves, (
+        f"flash_attention launched {counts['flash_attention']} times, "
+        f"expected {n_groups} shared-attention groups x {n_waves} waves")
+    assert counts["wkv6"] == 0, counts
+    assert len(outs) == len(prompts)
+    assert all(len(o) == new_tokens for o in outs)
+    assert all(0 <= t < cfg.vocab_size for o in outs for t in o)
+
+    # First wave: prefill and one decode step with the kernel, against
+    # the same with the plain chunked SSD, on the bf16 model that served
+    # and on the same seeded weights in f32.
+    toks = torch.from_numpy(engine.pad_wave(prompts[:engine.B])).cuda()
+    step = torch.tensor([o[0] for o in outs[:engine.B]], device="cuda")
+    step = step[:, None]
+    # The plain version at the model's chunk is the reference; the same
+    # at half the chunk and the sequential oracle (the recurrence, as the
+    # kernel computes it) give the plain versions' own spread.
+    ref = f"plain{cfg.ssm_chunk}"
+    versions = {ref: with_chunk(ssm_scan_chunked, cfg.ssm_chunk),
+                f"plain{cfg.ssm_chunk // 2}": with_chunk(
+                    ssm_scan_chunked, cfg.ssm_chunk // 2),
+                "oracle": lambda *args, chunk=None, **kw: ssm_scan_ref(
+                    *args, **kw)}
+    capacity = engine.capacity
+
+    def compare(m, c):
+        return compare_paths(m, c, toks, step, capacity, (ops, "ssm_scan"),
+                             versions,
+                             lambda caches: caches["mamba"]["ssm"])
+    check_paths(cfg, compare(model, cfg), True, ref, "SSM")
+
+    # Where a warm prefill of the first wave and one decode step after it
+    # spend their time.
+    with torch.inference_mode():
+        caches = init_caches(cfg, engine.B, engine.capacity)
+        prefill = device_breakdown(lambda: forward(
+            model, {"tokens": toks}, mode="prefill", caches=caches))
+        decode = device_breakdown(lambda: forward(
+            model, {"tokens": step}, mode="decode", caches=caches,
+            pos=toks.shape[1]))
+    log("serve", "profile prefill " + json.dumps(prefill))
+    log("serve", "profile decode step " + json.dumps(decode))
+
+    pre = engine.timings["prefill_s"]
+    dec_s = engine.timings["decode_s"]
+    gen_tokens = sum(len(o) for o in outs)
+    row = {"arch": cfg.name, "requests": len(prompts),
+           "prompt_tokens": int(lengths.sum()), "new_tokens": new_tokens,
+           "waves": n_waves, "ssm_scan_launches": counts["ssm_scan"],
+           "flash_launches": counts["flash_attention"],
+           "prefill_ms": [1e3 * s for s in pre],
+           "decode_ms_per_token": 1e3 * statistics.median(dec_s),
+           "wall_s": wall, "tokens_per_s": gen_tokens / wall,
+           "prompt_tokens_per_s": int(lengths.sum()) / sum(pre),
+           "max_memory_allocated_bytes": peak,
+           "first_tokens": outs[0][:8]}
+    log("serve", json.dumps(row))
+
+    del engine, model, caches
+    torch.cuda.empty_cache()
+    cfg32 = cfg.replace(dtype="float32")
+    model32 = init_model(cfg32, seed=0, device="cuda")
+    check_paths(cfg32, compare(model32, cfg32), False, ref, "SSM")
+    return counts
 
 
 def main():
@@ -603,9 +863,12 @@ def main():
     sys.path.insert(0, str(ROOT / "src"))
     card = phase_device()
     phase_build()
-    rows = {"flash_attention": phase_kernels(), "wkv6": phase_wkv6()}
-    launches = {"flash_attention": phase_serve(),
-                "wkv6": phase_serve_rwkv6()}
+    rows = {"flash_attention": phase_kernels(), "wkv6": phase_wkv6(),
+            "ssm_scan": phase_ssd()}
+    launches = collections.Counter()
+    for phase in (phase_serve, phase_serve_rwkv6, phase_serve_zamba2):
+        launches.update(phase())
+    log("serve", f"launches over the three serve paths: {dict(launches)}")
     kernels = [{
         "name": name, "route": "cuda", "source": src, "replaces": tpu,
         "launches": launches[name],
@@ -615,7 +878,8 @@ def main():
         "bound_by": rows[name]["bound_by"],
         "library_ms": rows[name]["library_ms"]}
         for name, src, tpu in (("flash_attention", FLASH_SRC, FLASH_TPU),
-                               ("wkv6", WKV6_SRC, WKV6_TPU))]
+                               ("wkv6", WKV6_SRC, WKV6_TPU),
+                               ("ssm_scan", SSD_SRC, SSD_TPU))]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

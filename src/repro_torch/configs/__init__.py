@@ -20,11 +20,8 @@ ARCHS = (
     "hubert-xlarge",
 )
 
-PORTED = ("smollm-360m", "rwkv6-3b")
+PORTED = ("smollm-360m", "rwkv6-3b", "zamba2-2.7b")
 
-_LATER = {
-    "zamba2-2.7b": "slice 3 (zamba2-2.7b serve with the SSD scan kernel)",
-}
 _ZOO = "the model-zoo slice after the paper engines"
 
 
@@ -34,7 +31,7 @@ def get_config(name: str, reduced: bool = False):
     if name not in PORTED:
         raise NotImplementedError(
             f"{name} is not ported yet; it comes with "
-            f"{_LATER.get(name, _ZOO)} (ROADMAP.md, queue A)")
+            f"{_ZOO} (ROADMAP.md, queue A)")
     mod = importlib.import_module(
         f"{__name__}.{name.replace('-', '_').replace('.', 'p')}")
     return mod.reduced_config() if reduced else mod.config()

@@ -1,10 +1,11 @@
 """Serving entry point: batched generation with the port's ServeEngine.
 
-On the card (the default), for either ported arch:
+On the card (the default), for any ported arch:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b
 On the CPU, with the kernels' plain versions, at the reduced size:
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \
         --reduced --device cpu
 """
 from __future__ import annotations

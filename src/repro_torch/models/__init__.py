@@ -1,4 +1,5 @@
-"""The port's model zoo (dense GQA and RWKV-6 ssm families so far).
+"""The port's model zoo (dense GQA, RWKV-6 ssm and zamba2 hybrid families
+so far).
 
 >>> cfg = get_config("smollm-360m", reduced=True)
 >>> model = init_model(cfg, seed=0, device="cpu")

@@ -88,6 +88,14 @@ class ModelConfig:
         return max(1, self.n_heads // max(self.n_kv_heads, 1))
 
     @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim
+
+    @property
     def rwkv_heads(self) -> int:
         return self.d_model // self.rwkv_head_dim
 

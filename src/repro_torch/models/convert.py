@@ -4,7 +4,9 @@ so both frameworks can run the very same weights.
 ``params`` is the tree ``init_model`` returns in the JAX package, with
 every leaf already converted to a numpy array (the port imports no JAX):
 ``{"embed": (Vp, D), "final_norm": (D,), ["lm_head": (D, Vp)],
-"blocks": {...}}`` with the blocks stacked on a leading layer axis.
+"blocks": {...}}`` with the blocks stacked on a leading layer axis —
+for the hybrid family on two, (groups, period), and beside them the
+unstacked ``shared_attn`` tree of the one shared attention block.
 """
 from __future__ import annotations
 
@@ -46,11 +48,39 @@ _BLOCK_LEAVES = {
             "cv",                         # (L, F, D)
             "cr")},                       # (L, D, D)
     },
+    "hybrid": {                           # stacked (groups, period, ...)
+        ("ln",): "ln",
+        **{("mamba", n): f"mamba.{n}" for n in (
+            "in_proj",                    # (D, 2·di + 2·N + H)
+            "conv_w",                     # (K, di + 2·N)
+            "conv_b",                     # (di + 2·N,)
+            "dt_bias", "A_log", "D",      # (H,)
+            "norm",                       # (di,)
+            "out_proj")},                 # (di, D)
+    },
 }
-# Kept in f32: the norm scales, and the RWKV-6 weights the JAX layer
-# computes with in f32 (decay LoRA, bonus u inside the WKV, ln_x scale).
-_F32 = {"ln1", "ln2", "final_norm", "time.w0", "time.decay_A",
-        "time.decay_B", "time.u", "time.ln_x"}
+# The hybrid family's shared attention block: path in ``shared_attn`` ->
+# port name (unstacked).
+_SHARED_LEAVES = {
+    ("ln1",): "shared.ln1",               # (2D,)
+    ("ln2",): "shared.ln2",
+    **{("attn", n): f"shared.attn.{n}" for n in ("wq", "wk", "wv", "wo")},
+    **{("mlp", n): f"shared.mlp.{n}" for n in ("w_gate", "w_up",
+                                               "w_down")},
+    ("down",): "shared.down",             # (2D, D)
+}
+# Kept in f32: the norm scales, and the RWKV-6 and Mamba-2 weights the
+# JAX layers compute with in f32 (decay LoRA, bonus u inside the WKV,
+# ln_x scale; dt_bias, A_log, D and the gated norm's scale).
+_F32 = {"ln", "ln1", "ln2", "final_norm", "time.w0", "time.decay_A",
+        "time.decay_B", "time.u", "time.ln_x", "mamba.dt_bias",
+        "mamba.A_log", "mamba.D", "mamba.norm", "shared.ln1", "shared.ln2"}
+
+
+def _leaf(tree, path):
+    for key in path:
+        tree = tree[key]
+    return tree
 
 
 def from_jax_params(cfg: ModelConfig, params: dict) -> dict:
@@ -69,14 +99,21 @@ def from_jax_params(cfg: ModelConfig, params: dict) -> dict:
              "final_norm": tensor("final_norm", params["final_norm"])}
     if not cfg.tie_embeddings:
         state["lm_head"] = tensor("lm_head", params["lm_head"])
-    blocks = params["blocks"]
+    hybrid = cfg.family == "hybrid"
     for path, name in _BLOCK_LEAVES[cfg.family].items():
-        leaf = blocks
-        for key in path:
-            leaf = leaf[key]
+        leaf = np.asarray(_leaf(params["blocks"], path))
+        if hybrid:   # (groups, period, ...) -> (layers, ...)
+            if leaf.shape[1] != cfg.hybrid_attn_period:
+                raise ValueError(f"blocks/{'/'.join(path)} has groups of "
+                                 f"{leaf.shape[1]} layers, config says "
+                                 f"{cfg.hybrid_attn_period}")
+            leaf = leaf.reshape(-1, *leaf.shape[2:])
         if leaf.shape[0] != cfg.n_layers:
             raise ValueError(f"blocks/{'/'.join(path)} has {leaf.shape[0]} "
                              f"layers, config says {cfg.n_layers}")
         for i in range(cfg.n_layers):
             state[f"blocks.{i}.{name}"] = tensor(name, leaf[i])
+    if hybrid:
+        for path, name in _SHARED_LEAVES.items():
+            state[name] = tensor(name, _leaf(params["shared_attn"], path))
     return state

@@ -63,16 +63,20 @@ def _decode_attend(q, ck, cv, pos, capacity, window, cap):
 
 
 class Attention(nn.Module):
-    """wq (D, H, Dh), wk/wv (D, KV, Dh), wo (H, Dh, D_out)."""
+    """wq (D_in, H, Dh), wk/wv (D_in, KV, Dh), wo (H, Dh, D_out);
+    ``d_in`` and ``d_out`` default to ``cfg.d_model``, as in the JAX
+    package's ``init_attn``."""
 
-    def __init__(self, cfg, dtype, device):
+    def __init__(self, cfg, dtype, device, d_in: int | None = None,
+                 d_out: int | None = None):
         super().__init__()
-        D, H, KV, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+        D, H, KV, Dh = (d_in or cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                        cfg.d_head)
 
         def w(*shape):
             return weight(*shape, dtype=dtype, device=device)
         self.wq, self.wk, self.wv = w(D, H, Dh), w(D, KV, Dh), w(D, KV, Dh)
-        self.wo = w(H, Dh, D)
+        self.wo = w(H, Dh, d_out or cfg.d_model)
         self.cfg = cfg
 
     def forward(self, x, *, positions, window=None, cache=None, pos=None,

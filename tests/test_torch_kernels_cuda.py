@@ -15,9 +15,12 @@ from repro_torch.kernels.flash_attention.blockwise import blockwise_attention
 from repro_torch.kernels.flash_attention.kernel import flash_attention
 from repro_torch.kernels.rwkv6.chunked import wkv6_chunked
 from repro_torch.kernels.rwkv6.kernel import wkv6
+from repro_torch.kernels.ssm_scan.chunked import ssm_scan_chunked
+from repro_torch.kernels.ssm_scan.kernel import ssm_scan
 
 F32_TOL = dict(rtol=3e-5, atol=1.2e-4)
 WKV_F32_TOL = dict(rtol=2e-3, atol=2e-3)   # the JAX suite's WKV limit
+SSD_F32_TOL = dict(rtol=2e-3, atol=2e-3)   # the JAX suite's SSD limit
 
 
 @pytest.fixture
@@ -91,6 +94,78 @@ def test_wkv6_kernel_rejects_bad_inputs(cuda):
     odd = torch.zeros(1, 8, 2, 17, device=cuda)[..., 1:]
     with pytest.raises(ValueError, match="aligned"):
         wkv6(odd, r, r, r, u)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_head_dim_160_with_window(cuda):
+    """zamba2's shared attention: Dk = Dv = 160 (five value columns a
+    lane, ~100 KB of shared memory) and a window shorter than S."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v = (torch.randn(1, 300, 4, 160, generator=g, device=cuda)
+               for _ in range(3))
+    got = flash_attention(q, k, v, causal=True, window=100)
+    want = blockwise_attention(q, k, v, causal=True, window=100)
+    torch.testing.assert_close(got, want, **F32_TOL)
+
+
+def _conv_output(cuda, B, S, H, P, G, N, dtype=torch.float32, seed=4):
+    """x, B, C as the Mamba-2 layer gives them: views of one (B, S,
+    H·P + 2·G·N) convolution output split along its last dim."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    xbc = torch.randn(B, S, H * P + 2 * G * N, generator=g,
+                      device=cuda).to(dtype)
+    x, bm, cm = torch.split(xbc, [H * P, G * N, G * N], dim=-1)
+    dt = torch.nn.functional.softplus(
+        torch.randn(B, S, H, generator=g, device=cuda))
+    a = -torch.exp(0.5 * torch.randn(H, generator=g, device=cuda))
+    d = 0.1 * torch.randn(H, generator=g, device=cuda)
+    h0 = 0.3 * torch.randn(B, H, P, N, generator=g, device=cuda)
+    return (x.unflatten(-1, (H, P)), dt, a, bm.unflatten(-1, (G, N)),
+            cm.unflatten(-1, (G, N)), d), h0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [1, 2])
+def test_ssm_scan_kernel_reads_strided_views(cuda, G):
+    """x, B and C as views of a split convolution output (row stride
+    H·P + 2·G·N), B and C read by group, from a nonzero state; y and the
+    final state; one launch per call."""
+    args, h0 = _conv_output(cuda, 2, 100, 4, 64, G, 64)
+    assert not args[0].is_contiguous() and not args[3].is_contiguous()
+    before = ssm_scan.launches
+    y, hT = ssm_scan(*args, h0=h0)
+    assert ssm_scan.launches == before + 1
+    want_y, want_h = ssm_scan_chunked(*args, h0=h0, chunk=32)
+    torch.testing.assert_close(y, want_y, **SSD_F32_TOL)
+    torch.testing.assert_close(hT, want_h, **SSD_F32_TOL)
+
+
+@pytest.mark.cuda
+def test_ssm_scan_kernel_rejects_bad_inputs(cuda):
+    (x, dt, a, bm, cm, d), h0 = _conv_output(cuda, 1, 8, 2, 16, 1, 8)
+    with pytest.raises(ValueError, match="dtype"):
+        ssm_scan(x, dt, a, bm.bfloat16(), cm, d)
+    with pytest.raises(ValueError, match="dt must be float32"):
+        ssm_scan(x, dt.bfloat16(), a, bm, cm, d)
+    with pytest.raises(ValueError, match="h0"):
+        ssm_scan(x, dt, a, bm, cm, d, h0=h0.bfloat16())
+    with pytest.raises(ValueError, match="state dim"):
+        ssm_scan(x, dt, a, bm[..., :4], cm[..., :4], d)
+    with pytest.raises(ValueError, match="divide"):
+        ssm_scan(x, dt, a, torch.cat([bm] * 3, 2), torch.cat([cm] * 3, 2),
+                 d)
+    odd = torch.zeros(1, 8, 2, 17, device=cuda)[..., 1:]
+    with pytest.raises(ValueError, match="aligned"):
+        ssm_scan(odd, dt, a, bm, cm, d)
+
+
+def test_ssm_scan_kernel_rejects_cpu_tensors():
+    """The kernel never takes CPU tensors (``ops.ssm_scan`` sends those to
+    the plain version); the check comes before any build or launch."""
+    x = torch.zeros(1, 8, 2, 16)
+    bm, dt, h = torch.zeros(1, 8, 1, 8), torch.zeros(1, 8, 2), torch.zeros(2)
+    with pytest.raises(ValueError, match="CUDA"):
+        ssm_scan(x, dt, h, bm, bm, h)
 
 
 def test_wkv6_kernel_rejects_cpu_tensors():
