@@ -7,11 +7,19 @@ Phases, each printing its lines; any failure exits nonzero:
   1. device: the card's name and power limit; TF32 off.
   2. build: every CUDA source of the port, one nvcc each, all started
      together; registers and spills of each kernel.
-  3. kernels: each kernel (flash attention, WKV-6, the Mamba-2 SSD scan)
-     against its plain PyTorch version on the card at every tested
-     variant and, in f32 and bf16, at its serve path's shape, where it is
-     then timed (flash also at zamba2-2.7b's shared-attention shape).
-  4. serve: full-width smollm-360m, rwkv6-3b and zamba2-2.7b (seeded
+  3. kernels: each kernel (flash attention, WKV-6, the Mamba-2 SSD scan,
+     the GEMM) against its plain PyTorch version on the card at every
+     tested variant and, in f32 and bf16, at its main path's shape, where
+     it is then timed (flash also at zamba2-2.7b's shared-attention
+     shape; the GEMM at the calibration's largest size and at
+     zamba2-2.7b's in_proj shape).
+  4. calibrate + plan: with every launch count at 0, the full calibration
+     pass (profile_kernels() on the card) must launch each kernel once
+     per sample and warm-up or timed call, and no other; the profile
+     survives the store; then each served arch is planned on meshes
+     (1, 1) and (2, 2) with the calibrated profile and with the data
+     sheet's constants.
+  5. serve: full-width smollm-360m, rwkv6-3b and zamba2-2.7b (seeded
      random weights), each serving 8 requests of 900-1024 prompt tokens
      through ServeEngine. Every launch count is set to 0 just before a
      path and read just after: each kernel of the path must have launched
@@ -45,7 +53,10 @@ WKV6_SRC = "src/repro_torch/kernels/csrc/wkv6.cu"
 WKV6_TPU = "src/repro/kernels/rwkv6/kernel.py:21"
 SSD_SRC = "src/repro_torch/kernels/csrc/ssm_scan.cu"
 SSD_TPU = "src/repro/kernels/ssm_scan/kernel.py:24"
+GEMM_SRC = "src/repro_torch/kernels/csrc/gemm.cu"
+GEMM_TPU = "src/repro/kernels/gemm/kernel.py:18"
 H100_BF16_FLOPS = 989e12     # dense tensor-core peak, SXM data sheet
+H100_F32_FLOPS = 67e12       # f32 on the CUDA cores, SXM data sheet
 H100_BYTES_PER_S = 3.35e12   # HBM3 peak
 
 # Kernel variants (name, kwargs, (B, Sq, Skv, H, KV, Dk, Dv)).
@@ -139,11 +150,35 @@ SSD_VARIANTS = [
     ("s77_state", (2, 77, 4, 16, 2, 8), 32, True, 1.0),
     ("g1_n64_p64_s100_state", (2, 100, 3, 64, 1, 64), 64, True, 1.0),
     ("n64_decay0", (2, 70, 4, 64, 1, 64), 32, True, 40.0),
+    # the calibration pass's larger SSD sample: N = 16, P = 16, one group
+    ("calib_n16_p16_s512_c64", (2, 512, 2, 16, 1, 16), 64, True, 1.0),
 ]
 # The JAX suite's SSD limits (rtol = atol), on y and on the final state,
 # at every variant and at the serve shape.
 SSD_TOL = {torch.float32: 2e-3, torch.bfloat16: 6e-2}
 ZAMBA_SSD_SHAPE = (4, 1024, 80, 64, 1, 64)   # zamba2-2.7b: B, S, H, P, G, N
+
+# GEMM shapes (M, K, N): the JAX suite's (tests/test_kernels.py, ragged
+# M, N and K among them), then the calibration pass's (smoke and full),
+# each with standard-normal operands as those draw them; then zamba2-2.7b's
+# in_proj at the serve shape (4 rows of 1024 tokens, d_model 2560, 2 x
+# 5120 + 2 x 64 + 80 outputs), with a the RMS-normed hidden state
+# (standard normal) and b at the model's fan-in init scale (1/sqrt(K)).
+GEMM_SHAPES = [(128, 128, 128), (256, 512, 128), (100, 70, 130),
+               (33, 257, 65), (256, 256, 256), (512, 512, 512),
+               (768, 768, 768)]
+GEMM_CALIB_SHAPE = (768, 768, 768)        # the calibration's largest
+IN_PROJ_SHAPE = (4 * 1024, 2560, 10448)
+# The JAX suite's GEMM limits (rtol, atol = 8·rtol): f32 sums of K
+# products in another order than cuBLAS's (no TF32 on either side);
+# bf16 inputs, f32 sums, one rounding to bf16 on each side.
+GEMM_TOL = {torch.float32: dict(rtol=2e-5, atol=1.6e-4),
+            torch.bfloat16: dict(rtol=3e-2, atol=0.24)}
+# Launches of one full profile_kernels() pass: samples x (1 warm-up + 3
+# timed calls).
+CALIB_LAUNCHES = {"gemm": 12, "flash_attention": 8, "wkv6": 8,
+                  "ssm_scan": 8}
+SERVED = ("smollm-360m", "rwkv6-3b", "zamba2-2.7b")
 
 
 def log(phase, msg):
@@ -239,6 +274,18 @@ def ssd_bound_ms(x, Bm, h0):
     nbytes = (2 * x.numel() * elt + 4 * B * S * H + 2 * Bm.numel() * elt
               + (1 if h0 is None else 2) * 4 * B * H * P * N + 2 * 4 * H)
     t_ops, t_bytes = flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
+
+
+def gemm_bound_ms(m, k, n, dtype):
+    """Least time on an H100 for C = A·B: 2·M·K·N operations at the peak
+    of their type (f32 on the CUDA cores, bf16 on the tensor cores),
+    against A and B read once and C written once at the HBM rate."""
+    flops = 2.0 * m * k * n
+    peak = H100_F32_FLOPS if dtype == torch.float32 else H100_BF16_FLOPS
+    nbytes = (m * k + k * n + m * n) * (4 if dtype == torch.float32 else 2)
+    t_ops, t_bytes = flops / peak, nbytes / H100_BYTES_PER_S
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
 
@@ -480,12 +527,148 @@ def phase_ssd():
     return row
 
 
+def phase_gemm():
+    from repro_torch.kernels.gemm.kernel import matmul
+    from repro_torch.kernels.gemm.ref import matmul_ref
+
+    def operands(shape, dtype, seed, w_scale=1.0):
+        m, k, n = shape
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        a = torch.randn(m, k, generator=g, device="cuda").to(dtype)
+        b = (w_scale * torch.randn(k, n, generator=g, device="cuda")
+             ).to(dtype)
+        return a, b
+
+    def check(name, a, b, dtype):
+        got, want = matmul(a, b), matmul_ref(a, b)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and torch.isfinite(got).all()
+        err = (got.float() - want.float()).abs().max().item()
+        log("kernels", f"gemm {name} {str(dtype)[6:]}: max_abs_err "
+            f"{err:.3e} (max |c| {want.float().abs().max().item():.3g}, "
+            f"limit {GEMM_TOL[dtype]})")
+        torch.testing.assert_close(got.float(), want.float(),
+                                   **GEMM_TOL[dtype])
+        return err
+
+    def timed(name, a, b, dtype, err):
+        m, k = a.shape
+        n = b.shape[1]
+        kernel_ms = time_ms(lambda: matmul(a, b))
+        bound_ms, bound_by, flops, nbytes = gemm_bound_ms(m, k, n, dtype)
+        row = {"name": "gemm", "shape": [m, k, n],
+               "dtype": str(dtype)[6:], "max_abs_err": err,
+               "kernel_ms": kernel_ms,
+               "plain_ms": time_ms(lambda: matmul_ref(a, b)),
+               "library_ms": time_ms(lambda: torch.matmul(a, b)),
+               "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
+               "bytes": nbytes, "tflops": flops / kernel_ms / 1e9}
+        log("kernels", f"gemm {name} " + json.dumps(row))
+        return row
+
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for i, shape in enumerate(GEMM_SHAPES):
+            a, b = operands(shape, dtype, seed=i)
+            errs[shape, dtype] = check(f"shape {shape}", a, b, dtype)
+    a, b = operands(GEMM_CALIB_SHAPE, torch.float32,
+                    seed=GEMM_SHAPES.index(GEMM_CALIB_SHAPE))
+    row = timed("calibration shape", a, b, torch.float32,
+                errs[GEMM_CALIB_SHAPE, torch.float32])
+    for dtype in (torch.float32, torch.bfloat16):
+        a, b = operands(IN_PROJ_SHAPE, dtype, seed=100,
+                        w_scale=IN_PROJ_SHAPE[1] ** -0.5)
+        err = check(f"zamba2-2.7b in_proj shape {IN_PROJ_SHAPE}", a, b,
+                    dtype)
+        timed("zamba2-2.7b in_proj shape", a, b, dtype, err)
+    del a, b
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_calibrate_plan():
+    """The calibration pass on the card, the store round trip, and the
+    planner on the calibrated and the data-sheet constants."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.evaluator import EvalOptions, Evaluator
+    from repro_torch.kernels.calibrate import (load_profile, profile_kernels,
+                                               save_profile)
+    from repro_torch.sharding.mcm_planner import arch_to_task, gpu_hw, plan
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    prof = profile_kernels()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    log("calibrate", f"profile_kernels() in {wall:.2f}s on {prof.backend}; "
+        f"launches {counts}")
+    assert counts == CALIB_LAUNCHES, (counts, CALIB_LAUNCHES)
+    assert prof.backend == "cuda"
+    for smp in prof.samples:
+        row = {"kernel": smp.kernel, "shape": list(smp.shape),
+               "flops": smp.flops, "bytes": smp.ideal_bytes,
+               "wall_ms": 1e3 * smp.wall_s,
+               "tflops": smp.achieved_flops_per_s / 1e12,
+               "gbytes_per_s": smp.achieved_bytes_per_s / 1e9}
+        log("calibrate", "sample " + json.dumps(row))
+        assert smp.flops > 0 and smp.wall_s > 0, smp
+    # f32 GEMM samples: no faster than the f32 CUDA-core peak (5% for
+    # clock boost and timer grain).
+    assert 0 < prof.flops_per_s <= 1.05 * H100_F32_FLOPS, prof.flops_per_s
+    share = prof.bytes_per_s / H100_BYTES_PER_S
+    log("calibrate", json.dumps({
+        "flops_per_s": prof.flops_per_s, "bytes_per_s": prof.bytes_per_s,
+        "bytes_share_of_hbm_peak": share,
+        "byte_overhead": prof.byte_overhead, "nop_frac": prof.nop_frac,
+        "freq_hz_at_128x128": prof.freq_for(128, 128)}))
+    path = ROOT / "build" / "calibrated_hw.bin"
+    save_profile(prof, str(path))
+    assert load_profile(str(path)) == prof, "profile changed in the store"
+    log("calibrate", f"profile saved to {path.relative_to(ROOT)} and "
+        "loaded back equal")
+
+    seq, batch, min_layers = 512, 8, 2          # planner_validate's slice
+    for arch in SERVED:
+        cfg = get_config(arch)
+        per = cfg.hybrid_attn_period or cfg.local_global_period or 1
+        layers = per * max(1, -(-min_layers // per))
+        for mesh in ((1, 1), (2, 2)):
+            for label, profile in (("calibrated", prof), ("datasheet", None)):
+                t0 = time.perf_counter()
+                pr = plan(cfg, mesh, seq, batch, layers=layers, ga_budget=10,
+                          profile=profile)
+                row = {"arch": arch, "mesh": list(mesh), "layers": layers,
+                       "constants": label,
+                       "baseline_s": pr.baseline_latency,
+                       "optimized_s": pr.optimized_latency,
+                       "headroom": pr.nonuniform_headroom,
+                       "modeled_speedup": pr.modeled_speedup,
+                       "accum_steps": pr.knobs["accum_steps"],
+                       "plan_s": time.perf_counter() - t0}
+                log("plan", json.dumps(row))
+                for key in ("baseline_latency", "optimized_latency",
+                            "nonuniform_headroom"):
+                    v = getattr(pr, key)
+                    assert math.isfinite(v) and v > 0, (key, row)
+                assert pr.nonuniform_headroom >= 1.0, row
+                task = arch_to_task(cfg, seq, batch, layers=layers)
+                valid = Evaluator(task, gpu_hw(mesh), EvalOptions(
+                    redistribution=True)).chain_valid
+                assert np.all(pr.redist_mask <= valid), row
+                assert batch % pr.knobs["accum_steps"] == 0, row
+                assert pr.knobs["shard_residual"] == bool(
+                    pr.redist_mask.any()), row
+    return counts
+
+
 def _wrappers():
     from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.kernels.gemm.kernel import matmul
     from repro_torch.kernels.rwkv6.kernel import wkv6
     from repro_torch.kernels.ssm_scan.kernel import ssm_scan
     return {"flash_attention": flash_attention, "wkv6": wkv6,
-            "ssm_scan": ssm_scan}
+            "ssm_scan": ssm_scan, "gemm": matmul}
 
 
 def reset_launch_counts():
@@ -532,7 +715,7 @@ def phase_serve():
     assert launches == cfg.n_layers * n_waves, (
         f"flash_attention launched {launches} times, expected "
         f"{cfg.n_layers} layers x {n_waves} prefill waves")
-    assert counts["wkv6"] == counts["ssm_scan"] == 0, counts
+    assert counts["wkv6"] == counts["ssm_scan"] == counts["gemm"] == 0, counts
     assert len(outs) == len(prompts)
     assert all(len(o) == new_tokens for o in outs)
     assert all(0 <= t < cfg.vocab_size for o in outs for t in o)
@@ -630,6 +813,7 @@ def phase_serve_rwkv6():
         f"wkv6 launched {launches} times, expected {cfg.n_layers} layers "
         f"x {n_waves} prefill waves")
     assert counts["flash_attention"] == counts["ssm_scan"] == 0, counts
+    assert counts["gemm"] == 0, counts
     assert len(outs) == len(prompts)
     assert all(len(o) == new_tokens for o in outs)
     assert all(0 <= t < cfg.vocab_size for o in outs for t in o)
@@ -792,7 +976,7 @@ def phase_serve_zamba2():
     assert counts["flash_attention"] == n_groups * n_waves, (
         f"flash_attention launched {counts['flash_attention']} times, "
         f"expected {n_groups} shared-attention groups x {n_waves} waves")
-    assert counts["wkv6"] == 0, counts
+    assert counts["wkv6"] == counts["gemm"] == 0, counts
     assert len(outs) == len(prompts)
     assert all(len(o) == new_tokens for o in outs)
     assert all(0 <= t < cfg.vocab_size for o in outs for t in o)
@@ -864,11 +1048,13 @@ def main():
     card = phase_device()
     phase_build()
     rows = {"flash_attention": phase_kernels(), "wkv6": phase_wkv6(),
-            "ssm_scan": phase_ssd()}
+            "ssm_scan": phase_ssd(), "gemm": phase_gemm()}
     launches = collections.Counter()
-    for phase in (phase_serve, phase_serve_rwkv6, phase_serve_zamba2):
+    for phase in (phase_calibrate_plan, phase_serve, phase_serve_rwkv6,
+                  phase_serve_zamba2):
         launches.update(phase())
-    log("serve", f"launches over the three serve paths: {dict(launches)}")
+    log("serve", f"launches over the calibration pass and the three serve "
+        f"paths: {dict(launches)}")
     kernels = [{
         "name": name, "route": "cuda", "source": src, "replaces": tpu,
         "launches": launches[name],
@@ -879,7 +1065,8 @@ def main():
         "library_ms": rows[name]["library_ms"]}
         for name, src, tpu in (("flash_attention", FLASH_SRC, FLASH_TPU),
                                ("wkv6", WKV6_SRC, WKV6_TPU),
-                               ("ssm_scan", SSD_SRC, SSD_TPU))]
+                               ("ssm_scan", SSD_SRC, SSD_TPU),
+                               ("gemm", GEMM_SRC, GEMM_TPU))]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -305,6 +305,7 @@ template <typename T>
 cudaError_t dispatch(const Params& p, int B, int N, cudaStream_t stream) {
   switch (N) {
     case 8: return launch<T, 8>(p, B, stream);      // the JAX suite's
+    case 16: return launch<T, 16>(p, B, stream);    // the calibration's
     case 64: return launch<T, 64>(p, B, stream);    // zamba2-2.7b
     default: return cudaErrorInvalidValue;
   }

@@ -20,7 +20,7 @@ import torch
 from .. import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-STATE_DIMS = (8, 64)         # the JAX suite's and zamba2-2.7b's
+STATE_DIMS = (8, 16, 64)     # the JAX suite, the calibration, zamba2-2.7b
 
 
 @functools.cache

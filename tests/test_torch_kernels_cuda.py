@@ -1,7 +1,9 @@
 """What ``chip_smoke.py`` does not cover of the port's CUDA kernels: each
 kernel on strided views, its rejects, one launch per call, and the
-build. (The kernel against its plain version at every variant, in both
-dtypes, is ``chip_smoke.py``'s kernel phase.) The ``cuda``-marked tests
+build; the GEMM at the JAX suite's shapes and the calibration's sizes
+and the SSD at the calibration's state dim 16. (Every kernel against
+its plain version at every variant, in both dtypes, is also
+``chip_smoke.py``'s kernel phase.) The ``cuda``-marked tests
 need an NVIDIA Hopper card and nvcc and skip elsewhere. Imports no JAX,
 so it runs where only the port is installed:
 
@@ -13,6 +15,8 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.blockwise import blockwise_attention
 from repro_torch.kernels.flash_attention.kernel import flash_attention
+from repro_torch.kernels.gemm.kernel import matmul
+from repro_torch.kernels.gemm.ref import matmul_ref
 from repro_torch.kernels.rwkv6.chunked import wkv6_chunked
 from repro_torch.kernels.rwkv6.kernel import wkv6
 from repro_torch.kernels.ssm_scan.chunked import ssm_scan_chunked
@@ -21,6 +25,13 @@ from repro_torch.kernels.ssm_scan.kernel import ssm_scan
 F32_TOL = dict(rtol=3e-5, atol=1.2e-4)
 WKV_F32_TOL = dict(rtol=2e-3, atol=2e-3)   # the JAX suite's WKV limit
 SSD_F32_TOL = dict(rtol=2e-3, atol=2e-3)   # the JAX suite's SSD limit
+# The JAX suite's GEMM limits (tests/test_kernels.py: rtol, atol = 8·rtol).
+GEMM_TOL = {torch.float32: dict(rtol=2e-5, atol=1.6e-4),
+            torch.bfloat16: dict(rtol=3e-2, atol=0.24)}
+# The JAX suite's shapes, then the calibration pass's (smoke and full).
+GEMM_SHAPES = [(128, 128, 128), (256, 512, 128), (100, 70, 130),
+               (33, 257, 65), (256, 256, 256), (512, 512, 512),
+               (768, 768, 768)]
 
 
 @pytest.fixture
@@ -157,6 +168,49 @@ def test_ssm_scan_kernel_rejects_bad_inputs(cuda):
     odd = torch.zeros(1, 8, 2, 17, device=cuda)[..., 1:]
     with pytest.raises(ValueError, match="aligned"):
         ssm_scan(odd, dt, a, bm, cm, d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssm_scan_kernel_state_dim_16(cuda, dtype):
+    """The calibration's full SSD samples: N = 16, P = 16, one group, as
+    strided views, from a nonzero state."""
+    args, h0 = _conv_output(cuda, 2, 512, 2, 16, 1, 16, dtype=dtype)
+    y, hT = ssm_scan(*args, h0=h0)
+    want_y, want_h = ssm_scan_chunked(*args, h0=h0, chunk=64)
+    tol = 2e-3 if dtype == torch.float32 else 6e-2
+    torch.testing.assert_close(y.float(), want_y.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(hT, want_h, rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", GEMM_SHAPES)
+def test_gemm_kernel_matches_plain(cuda, m, k, n, dtype):
+    """Ragged M, N and K included (100×70×130, 33×257×65); one launch per
+    call; C in the inputs' dtype."""
+    g = torch.Generator(device=cuda).manual_seed(m + k + n)
+    a = torch.randn(m, k, generator=g, device=cuda).to(dtype)
+    b = torch.randn(k, n, generator=g, device=cuda).to(dtype)
+    before = matmul.launches
+    got = matmul(a, b)
+    assert matmul.launches == before + 1
+    assert got.dtype == dtype and tuple(got.shape) == (m, n)
+    torch.testing.assert_close(got.float(), matmul_ref(a, b).float(),
+                               **GEMM_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_gemm_kernel_rejects_bad_inputs(cuda):
+    a = torch.zeros(8, 16, device=cuda)
+    with pytest.raises(ValueError, match="dtype"):
+        matmul(a, a.T.contiguous().bfloat16())
+    with pytest.raises(ValueError, match="dtype"):
+        matmul(a.half(), a.T.contiguous().half())
+    with pytest.raises(ValueError, match="contiguous"):
+        matmul(a, a.T)                    # a strided (16, 8) view
+    with pytest.raises(ValueError, match="inner dims"):
+        matmul(a, a)
 
 
 def test_ssm_scan_kernel_rejects_cpu_tensors():
