@@ -9,7 +9,8 @@ Phases, each printing its lines; any failure exits nonzero:
      together; registers and spills of each kernel.
   3. kernels: each kernel (flash attention, WKV-6, the Mamba-2 SSD scan,
      the GEMM) against its plain PyTorch version on the card at every
-     tested variant and, in f32 and bf16, at its main path's shape, where
+     tested variant (the calibration pass's sample shapes among them)
+     and, in f32 and bf16, at its main path's shape, where
      it is then timed (flash also at zamba2-2.7b's shared-attention
      shape; the GEMM at the calibration's largest size and at
      zamba2-2.7b's in_proj shape).
@@ -76,6 +77,9 @@ VARIANTS = [
     # zamba2's shared attention: head dim 160, a window shorter than S
     ("d160_window100", dict(causal=True, window=100),
      (1, 300, 300, 4, 4, 160, 160)),
+    # the calibration pass's samples: causal, H = KV = 4, head dim 64
+    ("calib_s256_d64", dict(causal=True), (1, 256, 256, 4, 4, 64, 64)),
+    ("calib_b2_s512_d64", dict(causal=True), (2, 512, 512, 4, 4, 64, 64)),
 ]
 TOL = {torch.float32: dict(rtol=3e-5, atol=1.2e-4),
        torch.bfloat16: dict(rtol=2e-2, atol=8e-2)}
@@ -99,8 +103,8 @@ LOGIT_REL_TOL = 2e-2
 # WKV-6 variants (name, (B, S, H, K), chunk of the plain version, s0 or
 # not, share of decays set to 0): the JAX suite's shapes
 # (tests/test_kernels.py), then one step, a ragged length, a nonzero
-# initial state, the model's K=64, and vanishing decays (the plain
-# version clamps w at 1e-38, a subnormal).
+# initial state, the model's K=64, vanishing decays (the plain version
+# clamps w at 1e-38, a subnormal), and the calibration pass's samples.
 WKV_VARIANTS = [
     ("s32_c16", (2, 32, 3, 16), 16, False, 0.0),
     ("s70_c16", (2, 70, 3, 16), 16, False, 0.0),
@@ -110,6 +114,8 @@ WKV_VARIANTS = [
     ("k32_s77_state", (2, 77, 3, 32), 16, True, 0.0),
     ("k64_s100_state", (2, 100, 3, 64), 32, True, 0.0),
     ("k64_decay0", (2, 70, 3, 64), 32, True, 0.25),
+    ("calib_k32_s128_c32", (1, 128, 2, 32), 32, False, 0.0),
+    ("calib_k32_s256_c32", (2, 256, 2, 32), 32, False, 0.0),
 ]
 # The JAX suite's WKV limits (rtol = atol), on y and on the final state.
 WKV_TOL = {torch.float32: 2e-3, torch.bfloat16: 6e-2}
@@ -150,8 +156,9 @@ SSD_VARIANTS = [
     ("s77_state", (2, 77, 4, 16, 2, 8), 32, True, 1.0),
     ("g1_n64_p64_s100_state", (2, 100, 3, 64, 1, 64), 64, True, 1.0),
     ("n64_decay0", (2, 70, 4, 64, 1, 64), 32, True, 40.0),
-    # the calibration pass's larger SSD sample: N = 16, P = 16, one group
+    # the calibration pass's SSD samples: N = 16, P = 16, one group
     ("calib_n16_p16_s512_c64", (2, 512, 2, 16, 1, 16), 64, True, 1.0),
+    ("calib_n16_p16_s256_c64", (1, 256, 2, 16, 1, 16), 64, False, 1.0),
 ]
 # The JAX suite's SSD limits (rtol = atol), on y and on the final state,
 # at every variant and at the serve shape.
@@ -174,6 +181,14 @@ IN_PROJ_SHAPE = (4 * 1024, 2560, 10448)
 # bf16 inputs, f32 sums, one rounding to bf16 on each side.
 GEMM_TOL = {torch.float32: dict(rtol=2e-5, atol=1.6e-4),
             torch.bfloat16: dict(rtol=3e-2, atol=0.24)}
+# The JAX suite's bf16 limit is set for unit-normal operands (|c| ~ √K).
+# At the in_proj shape the weights are at 1/√K, so |c| ~ 1, and the
+# limit comes from the output's scale instead: both versions sum in f32
+# and round once to bf16, so an element may differ by one bf16 step
+# (at most 2^-7 of |c|, the rtol); atol is two bf16 steps at the largest
+# output. The H100 reading is 0 (bit-equal, PERF.md); one dropped
+# 8-deep K tile moves outputs by ~0.3 there and fails.
+IN_PROJ_BF16_RTOL = 2 ** -7
 # Launches of one full profile_kernels() pass: samples x (1 warm-up + 3
 # timed calls).
 CALIB_LAUNCHES = {"gemm": 12, "flash_attention": 8, "wkv6": 8,
@@ -539,16 +554,16 @@ def phase_gemm():
              ).to(dtype)
         return a, b
 
-    def check(name, a, b, dtype):
+    def check(name, a, b, dtype, tol=None):
         got, want = matmul(a, b), matmul_ref(a, b)
         torch.cuda.synchronize()
         assert got.dtype == dtype and torch.isfinite(got).all()
         err = (got.float() - want.float()).abs().max().item()
+        c_max = want.float().abs().max().item()
+        tol = tol(c_max) if tol else GEMM_TOL[dtype]
         log("kernels", f"gemm {name} {str(dtype)[6:]}: max_abs_err "
-            f"{err:.3e} (max |c| {want.float().abs().max().item():.3g}, "
-            f"limit {GEMM_TOL[dtype]})")
-        torch.testing.assert_close(got.float(), want.float(),
-                                   **GEMM_TOL[dtype])
+            f"{err:.3e} (max |c| {c_max:.3g}, limit {tol})")
+        torch.testing.assert_close(got.float(), want.float(), **tol)
         return err
 
     def timed(name, a, b, dtype, err):
@@ -575,11 +590,13 @@ def phase_gemm():
                     seed=GEMM_SHAPES.index(GEMM_CALIB_SHAPE))
     row = timed("calibration shape", a, b, torch.float32,
                 errs[GEMM_CALIB_SHAPE, torch.float32])
+    in_proj_tol = {torch.float32: None, torch.bfloat16: lambda c_max: dict(
+        rtol=IN_PROJ_BF16_RTOL, atol=2 * 2 ** -8 * c_max)}
     for dtype in (torch.float32, torch.bfloat16):
         a, b = operands(IN_PROJ_SHAPE, dtype, seed=100,
                         w_scale=IN_PROJ_SHAPE[1] ** -0.5)
         err = check(f"zamba2-2.7b in_proj shape {IN_PROJ_SHAPE}", a, b,
-                    dtype)
+                    dtype, in_proj_tol[dtype])
         timed("zamba2-2.7b in_proj shape", a, b, dtype, err)
     del a, b
     torch.cuda.empty_cache()

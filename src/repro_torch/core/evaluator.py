@@ -10,18 +10,16 @@ axis so that the genetic algorithm (Sec. 6.2) evaluates its whole
 population in one call. float64 throughout — cycle counts overflow
 float32 mantissas.
 
-Backends: ``"numpy"`` (and ``"auto"``, which resolves to it). The JAX
-package's ``"jax"`` backend has no counterpart; a torch backend comes
-with the port's paper-engine slice (ROADMAP.md, A.5).
+The JAX package's ``backend`` choice (numpy or jax) and its
+``congestion="flow"`` mode (link rates from the max-min waterfilling
+netsim) have no counterpart yet: they come with the port's paper-engine
+slice (ROADMAP.md, A.5), together with their first caller.
 
 Modeling conventions:
   * Off-chip and NoP serialization per phase combine as ``max`` — the
     congestion-aware regime pick of Sec. 3.2/4.3.3 (memory-bound vs
-    NoP-bound); the slower resource is the bottleneck. That is
-    ``congestion="regime"``, the one mode the port evaluates so far;
-    ``congestion="flow"`` (link rates from a max-min waterfilling
-    simulation) needs the netsim, which comes with slice 5, and raises
-    ``NotImplementedError`` when an evaluation reaches it.
+    NoP-bound); the slower resource is the bottleneck (the JAX
+    package's ``congestion="regime"``).
   * Per-chiplet NoP time for distribution = received_bytes × hops / BW_nop
     with the hop matrices of eqs. 10–12 (+ the diagonal-link alternative
     of Sec. 5.1.1 taken as a per-chiplet min).
@@ -36,16 +34,7 @@ import numpy as np
 from .hw import HWConfig
 from .workload import Partition, Task
 
-__all__ = ["BACKENDS", "CONGESTION_MODES", "EvalOptions", "EvalResult",
-           "Evaluator", "resolve_auto_backend"]
-
-
-#: Congestion models for the communication phases: "regime" = the
-#: closed-form max-pick of Sec. 3.2/4.3.3 (memory-bound vs NoP-bound,
-#: whichever serializes longer); "flow" = score the distribution/collection
-#: phases against link rates simulated by a max-min waterfilling netsim
-#: on the shared topology's flow network (slice 5 of the port).
-CONGESTION_MODES = ("regime", "flow")
+__all__ = ["EvalOptions", "EvalResult", "Evaluator"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,14 +44,10 @@ class EvalOptions:
     redistribution: bool = False   # Sec. 5.2 on-package redistribution
     async_exec: bool = False       # Sec. 5.3 fused comm+comp
     energy_mode: str = "paper"     # "paper" (eq. 4.4.1 verbatim) | "per_chiplet"
-    congestion: str = "regime"     # "regime" (Sec. 4.3.3) | "flow"
 
     def __post_init__(self):
         if self.energy_mode not in ("paper", "per_chiplet"):
             raise ValueError(f"bad energy_mode {self.energy_mode}")
-        if self.congestion not in CONGESTION_MODES:
-            raise ValueError(f"bad congestion {self.congestion!r}; "
-                             f"one of {CONGESTION_MODES}")
 
 
 @dataclasses.dataclass
@@ -84,39 +69,11 @@ class EvalResult:
         ]
 
 
-BACKENDS = ("numpy", "auto")
-
-
-def resolve_auto_backend(backend: str, population: int) -> str:
-    """Resolve ``"auto"`` to a concrete engine for a batch of
-    ``population`` candidates: numpy, the port's one backend so far."""
-    if backend not in BACKENDS:
-        raise ValueError(f"unknown backend {backend!r}; one of {BACKENDS}")
-    return "numpy"
-
-
 class Evaluator:
-    """Evaluates partitions for one (Task, HWConfig, EvalOptions) triple.
-
-    ``backend`` selects the execution engine: ``"numpy"`` (``"auto"``
-    resolves to it). ``congestion`` (shorthand for
-    ``options.congestion``) selects the communication model:
-    ``"regime"`` keeps the closed-form Sec. 3.2/4.3.3 max pick;
-    ``"flow"`` raises when an evaluation reaches it (slice 5).
-    """
+    """Evaluates partitions for one (Task, HWConfig, EvalOptions) triple."""
 
     def __init__(self, task: Task, hw: HWConfig,
-                 options: EvalOptions = EvalOptions(),
-                 backend: str = "numpy",
-                 congestion: str | None = None):
-        if backend not in BACKENDS:
-            raise ValueError(f"unknown backend {backend!r}; one of {BACKENDS}")
-        if congestion is not None:
-            # ctor-level override of the options field:
-            # Evaluator(congestion="flow") without spelling a full
-            # EvalOptions.
-            options = dataclasses.replace(options, congestion=congestion)
-        self.backend = backend
+                 options: EvalOptions = EvalOptions()):
         self.task = task
         self.hw = hw
         self.opts = options
@@ -239,23 +196,9 @@ class Evaluator:
         # NoP distribution: per-chiplet received bytes × hops / BW.
         tA_xy = inA[:, :, :, None] * self.hA[None, None]          # bytes*hops
         tW_xy = inW[:, :, None, :] * self.hW[None, None]
-
-        flow_mode = self.opts.congestion == "flow"
-        if flow_mode:
-            # Flow congestion: per-chiplet NoP arrival times from the
-            # simulated mesh link rates replace the hop-matrix closed
-            # form; off-chip serialization keeps the exact per-entrance
-            # term (shared stripes are fetched once per group — simulating
-            # the sole-user port would just re-derive t_off_in).
-            demand = (keepA[..., None, None] * inA[:, :, :, None]
-                      + inW[:, :, None, :])                      # [P,n,X,Y]
-            dist_done, t_coll_flow = self._flow_times(demand, chunk)
-            nop_in_xy = None          # regime-only (tA/tW still feed energy)
-            t_in = np.maximum(t_off_in, dist_done.max(axis=(-1, -2)))
-        else:
-            nop_in_xy = ((keepA[..., None, None] * tA_xy + tW_xy)
-                         / self.bw_nop_xy[None, None])
-            t_in = np.maximum(t_off_in, nop_in_xy.max(axis=(-1, -2)))
+        nop_in_xy = ((keepA[..., None, None] * tA_xy + tW_xy)
+                     / self.bw_nop_xy[None, None])
+        t_in = np.maximum(t_off_in, nop_in_xy.max(axis=(-1, -2)))
 
         # ------------------------------------------------ phase 2: compute
         # SCALE-Sim output-stationary latency (eq. 7) + SIMD epilogue.
@@ -273,22 +216,17 @@ class Evaluator:
         # directly under its memory stack).
         out_e = np.einsum("exy,pnxy->pne", self.ent_mask, chunk)
         t_off_out = (out_e / bw_ent).max(axis=-1)
-        if flow_mode:
-            # Collection: simulated mesh-flow completion replaces the
-            # entrance-link closed form; the off-chip write term stays.
-            t_offload = np.maximum(t_coll_flow, t_off_out)
-        else:
-            out_at_ent = np.einsum("exy,pnxy->pne", self.ent_pos, chunk)
-            is3d = self.top.entrance_is_3d[None, None, :]
-            nonlocal_out = out_e - np.where(is3d, out_at_ent, 0.0)
-            with np.errstate(divide="ignore", invalid="ignore"):
-                t_collect = np.where(
-                    self.links[None, None] > 0,
-                    nonlocal_out
-                    / (self.links[None, None] * self.bw_nop_ent[None, None]),
-                    0.0,
-                ).max(axis=-1)
-            t_offload = np.maximum(t_collect, t_off_out)
+        out_at_ent = np.einsum("exy,pnxy->pne", self.ent_pos, chunk)
+        is3d = self.top.entrance_is_3d[None, None, :]
+        nonlocal_out = out_e - np.where(is3d, out_at_ent, 0.0)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            t_collect = np.where(
+                self.links[None, None] > 0,
+                nonlocal_out
+                / (self.links[None, None] * self.bw_nop_ent[None, None]),
+                0.0,
+            ).max(axis=-1)
+        t_offload = np.maximum(t_collect, t_off_out)
 
         # --------------------------------- phase 3b: redistribution path
         # (Sec. 5.2) Step 1: row gather toward collector column c.
@@ -327,12 +265,8 @@ class Evaluator:
         # ------------------------------------------------------- schedule
         if self.opts.async_exec:
             # Fuse comm+comp per chiplet for non-sync ops (Sec. 5.3).
-            if flow_mode:
-                t_fused = np.maximum(
-                    (dist_done + t_comp_xy).max(axis=(-1, -2)), t_off_in)
-            else:
-                fused_xy = nop_in_xy + t_comp_xy
-                t_fused = np.maximum(fused_xy.max(axis=(-1, -2)), t_off_in)
+            fused_xy = nop_in_xy + t_comp_xy
+            t_fused = np.maximum(fused_xy.max(axis=(-1, -2)), t_off_in)
             core = np.where(self.sync[None, :], t_in + t_comp, t_fused)
         else:
             core = t_in + t_comp
@@ -385,18 +319,6 @@ class Evaluator:
         }
 
     # -------------------------------------------------------------- helpers
-    def _flow_times(self, demand: np.ndarray, chunk: np.ndarray
-                    ) -> tuple[np.ndarray, np.ndarray]:
-        """Simulate the distribution and collection phases per
-        (candidate, op) on the topology's flow network: per-chiplet
-        distribution completion times ``[P, n, X, Y]`` and collection-phase
-        latencies ``[P, n]``. The netsim that computes them is not ported
-        yet."""
-        raise NotImplementedError(
-            'congestion="flow" needs the flow netsim, which the port brings '
-            "with slice 5 (the paper engines, ROADMAP.md A.5); use "
-            'congestion="regime"')
-
     def objective_batch(self, Px, Py, collectors, redist, objective: str
                         ) -> np.ndarray:
         out = self.evaluate_batch(Px, Py, collectors, redist)

@@ -17,13 +17,11 @@ Constraint-preserving operators:
 
 Fitness is the vectorized evaluator over the whole population at once.
 
-The port's copy of the JAX package's ``core/ga.py``, with its numpy
-fitness backend only. Two evolution engines:
-  * ``engine="python"`` — the original per-individual offspring loop;
-    the behavioral reference.
-  * ``engine="vectorized"`` — all genetic operators act on the whole
-    population at once, in numpy. The JAX package's device-resident
-    engine has no counterpart yet.
+The port's copy of the JAX package's ``core/ga.py``: its reference
+engine (the per-individual offspring loop, ``engine="python"``) on the
+numpy evaluator, the one the layout planner runs. The JAX package's
+vectorized and device-resident engines and its fitness backends come
+with their first caller in the port (ROADMAP.md, A.5).
 """
 from __future__ import annotations
 
@@ -31,17 +29,14 @@ import dataclasses
 
 import numpy as np
 
-from .evaluator import EvalOptions, Evaluator, resolve_auto_backend
+from .evaluator import EvalOptions, Evaluator
 from .hw import HWConfig
 from .workload import (Partition, Task, clamp_partition_to_domain,
                        partition_domain, uniform_partition)
 
-__all__ = ["GAConfig", "GAResult", "run_ga", "ENGINES"]
+__all__ = ["GAConfig", "GAResult", "run_ga"]
 
-ENGINES = ("python", "vectorized")
-
-#: Attempts per rejection-sampled unit move (both engines; the python
-#: reference used the same constant inline).
+#: Attempts per rejection-sampled unit move.
 MOVE_ATTEMPTS = 4
 
 
@@ -60,8 +55,6 @@ class GAConfig:
     seed: int = 0
     freeze_redist: bool = False  # force redistribution on all valid pairs
                                  # (planner: no shared-memory path exists)
-    backend: str = "numpy"       # fitness backend: "numpy" | "auto"
-    engine: str = "python"       # evolution engine: "python" | "vectorized"
 
 
 @dataclasses.dataclass
@@ -100,34 +93,6 @@ def _random_population(rng, task, hw, cfg, pop):
     return Px, Py, coll.astype(np.int64), redist
 
 
-def _random_population_vec(rng, task, hw, cfg, pop):
-    """Vectorized-engine population init: same shape/spirit as
-    :func:`_random_population` (uniform center, random unit moves,
-    individual 0 stays uniform) but applies the moves to the whole
-    ``[P, n]`` tensor per round instead of per individual."""
-    n = len(task)
-    X, Y = hw.X, hw.Y
-    base = uniform_partition(task, X, Y)
-    base = clamp_partition_to_domain(base, task, X, Y, hw.R, hw.C, cfg.slack)
-    Px = np.repeat(base.Px[None], pop, axis=0).astype(np.int64)
-    Py = np.repeat(base.Py[None], pop, axis=0).astype(np.int64)
-    lo, hi = partition_domain(task, X, Y, hw.R, hw.C, cfg.slack)
-    rounds = rng.integers(0, X + Y, size=(pop, n))
-    rounds[0] = 0                       # individual 0 stays uniform
-    for t in range(X + Y - 1):
-        active = rounds > t
-        _move_units_vec(rng, Px, hw.R, lo[:, 0], hi[:, 0], active)
-        _move_units_vec(rng, Py, hw.C, lo[:, 1], hi[:, 1], active)
-    coll = rng.integers(0, Y, size=(pop, n))
-    coll[0] = Y // 2
-    if cfg.freeze_redist:
-        redist = np.ones((pop, n), dtype=bool)
-    else:
-        redist = rng.random((pop, n)) < 0.5
-        redist[0] = True
-    return Px, Py, coll.astype(np.int64), redist
-
-
 def _move_unit(rng, row: np.ndarray, unit: int, lo: int, hi: int) -> None:
     """Move one ``unit`` from a donor entry to a receiver, in place,
     respecting the window — sum-preserving mutation. Rejection-samples a
@@ -146,68 +111,22 @@ def _move_unit(rng, row: np.ndarray, unit: int, lo: int, hi: int) -> None:
             return
 
 
-def _move_units_vec(rng, P_: np.ndarray, unit: int, lo: np.ndarray,
-                    hi: np.ndarray, active: np.ndarray) -> None:
-    """Population-wide sum-preserving unit move, in place.
-
-    ``P_`` is ``[P, n, X]`` ints, ``lo``/``hi`` are per-op unit windows
-    ``[n]``, ``active`` ``[P, n]`` selects which rows mutate. Rejection
-    sampling runs over the whole tensor at once: each attempt draws a
-    donor/receiver column per ``(p, i)`` and applies every row whose move
-    is feasible; infeasible rows stay pending for the next attempt (the
-    per-row semantics of :func:`_move_unit`, batched)."""
-    P, n, X = P_.shape
-    if X < 2:
-        return
-    pending = active.copy()
-    for _ in range(MOVE_ATTEMPTS):
-        if not pending.any():
-            return
-        d = rng.integers(0, X, size=(P, n))
-        r = rng.integers(0, X, size=(P, n))
-        dv = np.take_along_axis(P_, d[..., None], axis=-1)[..., 0]
-        rv = np.take_along_axis(P_, r[..., None], axis=-1)[..., 0]
-        ok = (pending & (d != r)
-              & (dv - unit >= lo[None] * unit)
-              & (rv + unit <= hi[None] * unit))
-        pi, ni = np.nonzero(ok)
-        P_[pi, ni, d[ok]] -= unit
-        P_[pi, ni, r[ok]] += unit
-        pending &= ~ok
-
-
 def run_ga(
     task: Task,
     hw: HWConfig,
     objective: str = "latency",
     options: EvalOptions | None = None,
     cfg: GAConfig = GAConfig(),
-    backend: str | None = None,
-    engine: str | None = None,
 ) -> GAResult:
-    """Run the Sec-6.2 GA. ``backend`` picks the fitness evaluator
-    (``"numpy"``/``"auto"``); ``engine`` picks the evolution loop
-    (``"python"``/``"vectorized"``). Both default to the
-    :class:`GAConfig` fields."""
+    """Run the Sec-6.2 GA: per-individual offspring loop."""
     if options is None:
         options = EvalOptions(redistribution=True, async_exec=True)
-    engine = engine or cfg.engine
-    if engine not in ENGINES:
-        raise ValueError(f"unknown engine {engine!r}; one of {ENGINES}")
-    backend = resolve_auto_backend(backend or cfg.backend, cfg.population)
-    if engine == "vectorized":
-        return _run_ga_vectorized(task, hw, objective, options, cfg, backend)
-    return _run_ga_python(task, hw, objective, options, cfg, backend)
-
-
-def _run_ga_python(task, hw, objective, options, cfg, backend) -> GAResult:
-    """Reference engine: per-individual offspring loop."""
-    ev = Evaluator(task, hw, options, backend=backend)
+    ev = Evaluator(task, hw, options)
     rng = np.random.default_rng(cfg.seed)
     n = len(task)
     X, Y = hw.X, hw.Y
     pop = cfg.population
-    elite = min(cfg.elite, pop - 1)   # same clamp as the vectorized engines
+    elite = min(cfg.elite, pop - 1)
     lo, hi = partition_domain(task, X, Y, hw.R, hw.C, cfg.slack)
 
     Px, Py, coll, redist = _random_population(rng, task, hw, cfg, pop)
@@ -281,85 +200,6 @@ def _run_ga_python(task, hw, objective, options, cfg, backend) -> GAResult:
     )
 
 
-def _run_ga_vectorized(task, hw, objective, options, cfg, backend
-                       ) -> GAResult:
-    """Vectorized engine, numpy RNG: every genetic operator acts on the
-    whole population per generation."""
-    ev = Evaluator(task, hw, options, backend=backend)
-    rng = np.random.default_rng(cfg.seed)
-    n = len(task)
-    X, Y = hw.X, hw.Y
-    pop = cfg.population
-    elite = min(cfg.elite, pop - 1)
-    Q = pop - elite
-    lo, hi = partition_domain(task, X, Y, hw.R, hw.C, cfg.slack)
-
-    Px, Py, coll, redist = _random_population_vec(rng, task, hw, cfg, pop)
-    n_eval = 0
-    history = []
-    best = None
-    flat = 0
-
-    for gen in range(cfg.generations):
-        fit = ev.objective_batch(
-            Px.astype(np.float64), Py.astype(np.float64), coll,
-            redist.astype(np.float64), objective)
-        n_eval += pop
-        order = np.argsort(fit)
-        gen_best = float(fit[order[0]])
-        if best is None or gen_best < best[0] * (1.0 - 1e-4):
-            flat = 0
-        else:
-            flat += 1
-        if best is None or gen_best < best[0]:
-            best = (gen_best, (Px[order[0]].copy(), Py[order[0]].copy(),
-                               coll[order[0]].copy(), redist[order[0]].copy()))
-        history.append(best[0])
-        if flat >= cfg.patience:
-            break
-
-        # --------------------------------------- next epoch, all at once
-        a = _tournament_vec(rng, fit, cfg.tournament, Q)
-        b = _tournament_vec(rng, fit, cfg.tournament, Q)
-        mask = ((rng.random(Q) < cfg.p_crossover)[:, None]
-                & (rng.random((Q, n)) < 0.5))      # per-op uniform crossover
-        cPx = np.where(mask[..., None], Px[b], Px[a])
-        cPy = np.where(mask[..., None], Py[b], Py[a])
-        cco = np.where(mask, coll[b], coll[a])
-        crd = np.where(mask, redist[b], redist[a])
-        # mutations
-        _move_units_vec(rng, cPx, hw.R, lo[:, 0], hi[:, 0],
-                        rng.random((Q, n)) < cfg.p_mutate_partition)
-        _move_units_vec(rng, cPy, hw.C, lo[:, 1], hi[:, 1],
-                        rng.random((Q, n)) < cfg.p_mutate_partition)
-        resample = rng.random((Q, n)) < cfg.p_mutate_collector
-        cco = np.where(resample, rng.integers(0, Y, size=(Q, n)), cco)
-        if not cfg.freeze_redist:
-            flip = rng.random((Q, n)) < cfg.p_mutate_redist
-            crd = np.where(flip, ~crd, crd)
-        Px = np.concatenate([Px[order[:elite]], cPx])
-        Py = np.concatenate([Py[order[:elite]], cPy])
-        coll = np.concatenate([coll[order[:elite]], cco])
-        redist = np.concatenate([redist[order[:elite]], crd])
-
-    obj, (bPx, bPy, bco, brd) = best
-    part = Partition(bPx, bPy, bco)
-    part.validate(task)
-    return GAResult(
-        partition=part,
-        redist_mask=brd & ev.chain_valid,
-        objective=obj,
-        history=np.array(history),
-        evaluations=n_eval,
-    )
-
-
 def _tournament(rng, fit: np.ndarray, k: int) -> int:
     idx = rng.integers(0, len(fit), size=k)
     return int(idx[np.argmin(fit[idx])])
-
-
-def _tournament_vec(rng, fit: np.ndarray, k: int, num: int) -> np.ndarray:
-    """``num`` independent k-way tournaments in one draw: [num] winners."""
-    idx = rng.integers(0, len(fit), size=(num, k))
-    return idx[np.arange(num), np.argmin(fit[idx], axis=1)]

@@ -4,9 +4,8 @@ Defines the four packaging types (Fig. 2/4), the Table-2 energy/bandwidth
 constants, and the chiplet-grid :class:`Topology`: per-chiplet local
 indices (x, y) relative to the nearest "global chiplet" (memory entrance),
 hop-count matrices for every communication case in Sec. 4.3 (including the
-diagonal link strategy of Sec. 5.1), entrance link counts used by the
-collection equation (eq. 8), and the link-level flow network consumed by
-the ``congestion="flow"`` evaluator mode.
+diagonal link strategy of Sec. 5.1), and the entrance link counts used
+by the collection equation (eq. 8).
 
 The port's copy of the JAX package's ``core/hw.py``, plain numpy. All
 geometry primitives live in :mod:`.topology`; this module composes them
@@ -229,7 +228,7 @@ class HWConfig:
         return Topology(self)
 
     # Pickle only the declared fields: the default protocol would drag
-    # the cached ``topology`` (hop matrices, flow nets) along — and the
+    # the cached ``topology`` (hop matrices) along — and the
     # unpickled copy must hash/compare equal to a fresh HWConfig, which
     # field-only state guarantees.
     def __getstate__(self):
@@ -311,7 +310,6 @@ class Topology:
         )
 
         self._build_hop_matrices()
-        self._flow_net = None
 
     # ----------------------------------------------------------------- hops
     def _build_hop_matrices(self):
@@ -332,49 +330,6 @@ class Topology:
         # number of NoP links into the entrance chiplet; 3D entrances
         # collect at memory bandwidth directly (no NoP bottleneck).
         self.collect_links = np.maximum(self.entrance_links, 0)
-
-    # ------------------------------------------------------- flow network
-    @property
-    def mesh_graph(self) -> topo.MeshGraph:
-        return topo.MeshGraph(self.hw.X, self.hw.Y)
-
-    def flow_net(self):
-        """Link-level flow network for ``congestion="flow"``:
-        ``(link_cap [L], dist_inc [X·Y, L], coll_inc [X·Y, L])``.
-
-        One *mesh-only* flow per chiplet, routed assigned entrance → XY
-        for the distribution phase and the reverse for collection
-        (chiplets use their hop-model entrance, ``entrance_id``, so the
-        flow and regime modes agree on which entrance serves which
-        chiplet). The memory-port columns are zeroed out of the
-        incidence: off-chip serialization stays the exact closed-form
-        per-entrance term — a port is used only by its own group, so
-        waterfilling it adds nothing, and shared row/column stripes are
-        fetched once per group (the paper's multicast accounting), not
-        once per chiplet. Only NoP delivery — which the paper does count
-        per chiplet — is simulated. A chiplet sitting on its entrance
-        (or under a 3D stack) has an empty mesh route: its incidence row
-        is zero and the evaluator masks its simulated demand to zero.
-        """
-        if self._flow_net is None:
-            hw = self.hw
-            g = self.mesh_graph
-            Y = hw.Y
-            attach = [ex * Y + ey for ex, ey, _ in self.entrances]
-            assign = np.array(
-                [attach[e] for e in self.entrance_id.ravel()])
-            dist = g.pull_incidence(attach, assign)
-            coll = g.push_incidence(attach, assign)
-            ports = ~g.mesh_link_mask()
-            dist[:, ports] = 0.0
-            coll[:, ports] = 0.0
-            self._flow_net = (
-                g.link_caps(hw.bw_nop_xy.ravel(), hw.bw_mem, attach,
-                            mem_scale=hw.mem_scale_xy.ravel()),
-                dist,
-                coll,
-            )
-        return self._flow_net
 
     # ------------------------------------------------------------- helpers
     def describe(self) -> str:

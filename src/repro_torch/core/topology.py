@@ -12,24 +12,12 @@ Everything here is an array-valued primitive:
   * **Hop matrices** — :func:`hop_matrices` (eqs. 10–12 plus the
     Sec. 5.1.1 diagonal-link alternative) and :func:`n_mesh_links`
     (entrance link counts for the eq. 8 collection bandwidth).
-  * **Link-level graph** — :class:`MeshGraph`: a dense enumeration of
-    every directed NoP link plus one memory port per chiplet, XY
-    (row-dimension-first) routing, and route *incidence matrices*
-    ``[n_flows, n_links]`` — the representation a max-min flow
-    simulator and the evaluator's ``congestion="flow"`` mode operate on
-    (the port's netsim comes with a later slice).
 
-The memory-port convention: every chiplet gets a port-link pair in the
-enumeration (``mem → c`` and ``c → mem``) whether or not memory actually
-attaches there. Unused ports carry no flows, so they never constrain a
-waterfilling — but keeping them in the link space makes the link axis a
-pure function of (X, Y), so whole (memory × placement × bandwidth) grids
-share one array shape.
+The JAX package's link-level graph (``MeshGraph``: directed links, XY
+routing, route incidence matrices) feeds only its flow netsim, so it
+comes with the port's netsim (ROADMAP.md, A.5).
 """
 from __future__ import annotations
-
-import dataclasses
-from functools import cached_property
 
 import numpy as np
 
@@ -39,8 +27,6 @@ __all__ = [
     "assign_entrances",
     "hop_matrices",
     "entrance_masks",
-    "MeshGraph",
-    "nearest_attach",
 ]
 
 
@@ -158,164 +144,3 @@ def entrance_masks(X: int, Y: int, ents, entrance_id):
     for i, (exi, eyi, _) in enumerate(ents):
         ent_pos[i, exi, eyi] = True
     return ent_mask, ent_pos, ent_mask.any(axis=2), ent_mask.any(axis=1)
-
-
-# ------------------------------------------------------------ link graph
-def nearest_attach(attach: list[int], dst: int, Y: int) -> int:
-    """Attach chiplet closest (manhattan) to ``dst``; ties break by
-    ``attach`` order — the netsim's historical routing rule."""
-    dr, dc = divmod(dst, Y)
-    return min(attach,
-               key=lambda a: abs(a // Y - dr) + abs(a % Y - dc))
-
-
-@dataclasses.dataclass(frozen=True)
-class MeshGraph:
-    """Directed link enumeration + XY routing for an X×Y mesh with a
-    memory node (id ``X*Y``) reachable through per-chiplet ports.
-
-    Link order: all directed mesh links (row-major over chiplets, the
-    +x then +y neighbour, both directions), then the ``mem → c`` port of
-    every chiplet, then every ``c → mem`` port. The link axis is a pure
-    function of (X, Y): ``n_links = 2·(X·(Y−1) + Y·(X−1)) + 2·X·Y``.
-    """
-
-    X: int
-    Y: int
-
-    @property
-    def n_nodes(self) -> int:
-        return self.X * self.Y
-
-    @property
-    def mem(self) -> int:
-        return self.X * self.Y
-
-    @cached_property
-    def links(self) -> tuple[tuple[int, int], ...]:
-        X, Y, mem = self.X, self.Y, self.mem
-        out: list[tuple[int, int]] = []
-        for r in range(X):
-            for c in range(Y):
-                u = r * Y + c
-                for (rr, cc) in ((r + 1, c), (r, c + 1)):
-                    if rr < X and cc < Y:
-                        v = rr * Y + cc
-                        out.append((u, v))
-                        out.append((v, u))
-        out += [(mem, c) for c in range(X * Y)]
-        out += [(c, mem) for c in range(X * Y)]
-        return tuple(out)
-
-    @cached_property
-    def index(self) -> dict[tuple[int, int], int]:
-        return {l: i for i, l in enumerate(self.links)}
-
-    @property
-    def n_links(self) -> int:
-        return len(self.links)
-
-    @property
-    def n_mesh_links_directed(self) -> int:
-        """Directed mesh (NoP) links — the enumeration prefix before the
-        2·n_nodes memory ports. The single source of the layout split."""
-        return self.n_links - 2 * self.n_nodes
-
-    def node_rc(self, n: int) -> tuple[int, int]:
-        return divmod(n, self.Y)
-
-    # -------------------------------------------------------------- routes
-    def xy_route(self, src: int, dst: int) -> list[tuple[int, int]]:
-        """Dimension-ordered (row-first) XY route, as directed link keys."""
-        Y = self.Y
-        links = []
-        r, c = self.node_rc(src)
-        r1, c1 = self.node_rc(dst)
-        while r != r1:
-            nr = r + (1 if r1 > r else -1)
-            links.append((r * Y + c, nr * Y + c))
-            r = nr
-        while c != c1:
-            nc = c + (1 if c1 > c else -1)
-            links.append((r * Y + c, r * Y + nc))
-            c = nc
-        return links
-
-    def pull_route(self, attach: list[int], dst: int,
-                   via: int | None = None) -> list[tuple[int, int]]:
-        """Memory → ``dst``: enter through ``via`` (or the nearest attach
-        chiplet), then XY."""
-        a = via if via is not None else nearest_attach(attach, dst, self.Y)
-        return [(self.mem, a)] + self.xy_route(a, dst)
-
-    def push_route(self, attach: list[int], src: int,
-                   via: int | None = None) -> list[tuple[int, int]]:
-        """``src`` → memory: XY to ``via`` (or the nearest attach
-        chiplet), then out through its port."""
-        a = via if via is not None else nearest_attach(attach, src, self.Y)
-        return self.xy_route(src, a) + [(a, self.mem)]
-
-    def _incidence(self, routes: list[list[tuple[int, int]]]) -> np.ndarray:
-        inc = np.zeros((len(routes), self.n_links), dtype=np.float64)
-        idx = self.index
-        for f, route in enumerate(routes):
-            for l in route:
-                inc[f, idx[l]] = 1.0
-        return inc
-
-    def pull_incidence(self, attach: list[int],
-                       assign: np.ndarray | None = None) -> np.ndarray:
-        """Route-incidence matrix ``[n_nodes, n_links]`` for one flow per
-        chiplet pulling from memory. ``assign[f]`` (optional) picks the
-        entrance *node id* each chiplet enters through; default is
-        nearest-attach."""
-        return self._incidence([
-            self.pull_route(attach, d,
-                            None if assign is None else int(assign[d]))
-            for d in range(self.n_nodes)])
-
-    def push_incidence(self, attach: list[int],
-                       assign: np.ndarray | None = None) -> np.ndarray:
-        """Route-incidence matrix for one flow per chiplet pushing its
-        output to memory (the collection phase)."""
-        return self._incidence([
-            self.push_route(attach, s,
-                            None if assign is None else int(assign[s]))
-            for s in range(self.n_nodes)])
-
-    def link_caps(self, bw_nop, bw_mem: float, attach: list[int],
-                  mem_scale=None) -> np.ndarray:
-        """Per-link capacities ``[n_links]``: mesh links at ``bw_nop``,
-        every memory port at ``bw_mem / len(attach)`` (iso-total-bandwidth
-        split; non-attach ports carry no flows, so their value is inert
-        but keeps the array batchable across attachment sets).
-
-        ``bw_nop`` may be a per-chiplet ``[n_nodes]`` array (heterogeneous
-        grids): a mesh link then runs at the min of its endpoint rates.
-        ``mem_scale`` (optional ``[n_nodes]``) scales each chiplet's port
-        share. With equal-element arrays both reduce bitwise to the
-        scalar capacities."""
-        b = np.asarray(bw_nop, dtype=np.float64)
-        cap = np.empty(self.n_links, dtype=np.float64)
-        n_mesh = self.n_mesh_links_directed
-        if b.ndim == 0:
-            cap[:n_mesh] = b
-        elif n_mesh:
-            uv = np.asarray(self.links[:n_mesh])
-            cap[:n_mesh] = np.minimum(b[uv[:, 0]], b[uv[:, 1]])
-        per_port = float(bw_mem) / max(len(attach), 1)
-        if mem_scale is None:
-            cap[n_mesh:] = per_port
-        else:
-            s = np.asarray(mem_scale, dtype=np.float64)
-            node = np.arange(self.n_nodes)
-            cap[n_mesh:] = np.concatenate(
-                [per_port * s[node], per_port * s[node]])
-        return cap
-
-    def mesh_link_mask(self) -> np.ndarray:
-        """Boolean ``[n_links]``: True for mesh (NoP) links, False for
-        memory ports."""
-        m = np.zeros(self.n_links, dtype=bool)
-        m[: self.n_mesh_links_directed] = True
-        return m

@@ -7,15 +7,16 @@ package's ``kernels/calibrate.py``).
 hand-written CUDA kernels on the card and their plain versions on the
 CPU: ``gemm.ops.matmul``, ``flash_attention.ops.attention`` (causal),
 ``rwkv6.ops.wkv6`` and ``ssm_scan.ops.ssm_scan``, at the JAX pass's
-sizes, on the same f32 inputs drawn from ``np.random.default_rng(seed)``
-in the same order. Each sample is timed as the JAX pass times it: one
-untimed call first (on the card it also builds the kernel at first use),
-then the median of ``reps`` calls, each between two CUDA events on the
-card and by ``time.perf_counter`` on the CPU. So a full pass launches
-each kernel ``samples × (1 + reps)`` times. The profile is persisted with
-the port's ``serve/cache_store`` record framing (magic + schema header,
-CRC-framed records, atomic save), so a stale or corrupt profile degrades
-to a re-calibration, never a crash.
+sizes, on the same f32 inputs drawn from ``np.random.default_rng(0)``
+(the JAX pass's default seed) in the same order. Each sample is timed
+as the JAX pass times it: one untimed call first (on the card it also
+builds the kernel at first use), then the median of ``reps`` calls,
+each between two CUDA events on the card and by ``time.perf_counter`` on
+the CPU. So a full pass launches each kernel ``samples × (1 + reps)``
+times. The profile is persisted with the port's ``serve/cache_store``
+record framing (magic + schema header, CRC-framed records, atomic save),
+so a stale or corrupt profile degrades to a re-calibration, never a
+crash.
 
 Fitting contract (the JAX pass's formulas):
 
@@ -24,9 +25,9 @@ Fitting contract (the JAX pass's formulas):
                   ``freq_hz = flops_per_s / (2·R·C)`` so R·C·2·freq
                   reproduces the measured rate.
 ``bytes_per_s``   best achieved byte rate over all samples.
-``byte_overhead`` median moved-bytes / ideal-bytes across samples,
-                  clipped ≥ 1; the evaluator traffics ideal bytes, so
-                  its memory bandwidth is ``bytes_per_s / byte_overhead``.
+``byte_overhead`` 1: moved bytes per ideal byte (see below); the
+                  evaluator's memory bandwidth is
+                  ``bytes_per_s / byte_overhead``.
 ``nop_frac``      NoP-link : memory bandwidth ratio. One card exposes no
                   link to measure, so the architectural ratio is kept
                   from the H100 SXM data sheet (NVLink 4 at 450 GB/s each
@@ -41,10 +42,11 @@ What differs from the JAX pass, and why:
   what XLA reports for the JAX ``matmul_ref``. The other samples count
   the matrix products of their plain chunked form; their FLOPs do not
   enter the fit.
-* A sample's moved bytes are its ideal bytes (each input read once, the
-  output written once), because each kernel keeps its intermediates out
-  of device memory. So ``byte_overhead`` is 1 by construction, where the
-  JAX pass reads XLA's byte count of the unfused graph.
+* A sample moves its ideal bytes (each input read once, the output
+  written once), because each kernel keeps its intermediates out of
+  device memory. So a sample has no moved-bytes count and
+  ``byte_overhead`` is 1 by construction, where the JAX pass takes the
+  median of XLA's byte count of the unfused graph over the ideal bytes.
 """
 from __future__ import annotations
 
@@ -67,6 +69,9 @@ PROFILE_SCHEMA = 1
 # interconnect to measure.
 NVLINK_OVER_HBM = 450e9 / 3.35e12
 
+# The JAX pass's default seed: both passes draw the same inputs.
+_SEED = 0
+
 
 # --------------------------------------------------------------------------
 # Measured samples and the fitted profile
@@ -78,7 +83,6 @@ class KernelSample:
     kernel: str                # gemm | flash_attention | rwkv6 | ssm_scan
     shape: tuple               # human-readable problem dims
     flops: float               # analytic operation count
-    moved_bytes: float         # bytes the call moves (= ideal_bytes here)
     ideal_bytes: float         # operand+result elements × dtype size
     wall_s: float              # median time of one call
     reps: int = 1
@@ -89,12 +93,7 @@ class KernelSample:
 
     @property
     def achieved_bytes_per_s(self) -> float:
-        return self.moved_bytes / self.wall_s if self.wall_s > 0 else 0.0
-
-    @property
-    def byte_overhead(self) -> float:
-        return (self.moved_bytes / self.ideal_bytes
-                if self.ideal_bytes > 0 else 1.0)
+        return self.ideal_bytes / self.wall_s if self.wall_s > 0 else 0.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -141,13 +140,11 @@ def fit_profile(samples, backend: str) -> CalibratedHW:
     gemm = [s for s in samples if s.kernel == "gemm"]
     flops_per_s = max(s.achieved_flops_per_s for s in gemm)
     bytes_per_s = max(s.achieved_bytes_per_s for s in samples)
-    overhead = max(1.0, statistics.median(
-        s.byte_overhead for s in samples if s.ideal_bytes > 0))
     return CalibratedHW(
         backend=backend,
         flops_per_s=flops_per_s,
         bytes_per_s=bytes_per_s,
-        byte_overhead=overhead,
+        byte_overhead=1.0,      # each kernel moves its ideal bytes
         samples=samples)
 
 
@@ -197,7 +194,7 @@ def _bench_gemm(rng, sizes, reps, device) -> list[KernelSample]:
         w = _measure(matmul, (a, b), reps=reps, device=device)
         ideal = _nbytes(a, b) + 4.0 * m * n
         out.append(KernelSample("gemm", (m, k, n), 2.0 * m * k * n, ideal,
-                                ideal, w, reps))
+                                w, reps))
     return out
 
 
@@ -216,7 +213,7 @@ def _bench_attention(rng, sizes, reps, device) -> list[KernelSample]:
         # pair: it skips no masked block
         flops = 2.0 * bsz * h * s * s * 2 * dh
         out.append(KernelSample("flash_attention", (bsz, s, h, dh), flops,
-                                ideal, ideal, w, reps))
+                                ideal, w, reps))
     return out
 
 
@@ -239,7 +236,7 @@ def _bench_rwkv6(rng, sizes, reps, device) -> list[KernelSample]:
         lc = min(chunk, s)
         flops = 4.0 * bsz * h * math.ceil(s / lc) * lc * k * (lc + k)
         out.append(KernelSample("rwkv6", (bsz, s, h, k, chunk), flops,
-                                ideal, ideal, wall, reps))
+                                ideal, wall, reps))
     return out
 
 
@@ -265,17 +262,17 @@ def _bench_ssm_scan(rng, sizes, reps, device) -> list[KernelSample]:
         flops = (2.0 * bsz * math.ceil(s / lc) * lc
                  * (g * lc * n + h * (lc * p + 2 * n * p)))
         out.append(KernelSample("ssm_scan", (bsz, s, h, p, g, n, chunk),
-                                flops, ideal, ideal, wall, reps))
+                                flops, ideal, wall, reps))
     return out
 
 
-def profile_kernels(*, smoke: bool = False, reps: int = 3, seed: int = 0,
+def profile_kernels(*, smoke: bool = False, reps: int = 3,
                     device=None) -> CalibratedHW:
     """Run the kernel microbenchmarks and fit a :class:`CalibratedHW`.
     ``device=None`` means the card (raises without one); ``"cpu"`` runs
     the plain versions."""
     device = resolve_device(device)
-    rng = np.random.default_rng(seed)
+    rng = np.random.default_rng(_SEED)
     if smoke:
         gemm_sizes = [(128, 128, 128), (256, 256, 256)]
         attn_sizes = [(1, 128, 2, 32)]

@@ -82,7 +82,7 @@ def test_smoke_profile_samples_match_jax(smoke_profiles):
         [(s.kernel, s.shape, s.ideal_bytes) for s in want.samples]
     for g, w in zip(got.samples, want.samples):
         assert g.flops > 0 and g.wall_s > 0 and g.reps == 1
-        assert g.moved_bytes == g.ideal_bytes and g.byte_overhead == 1.0
+        assert g.achieved_bytes_per_s == g.ideal_bytes / g.wall_s
         if g.kernel == "gemm":        # XLA's cost_analysis of matmul_ref
             assert g.flops == w.flops
     assert got.byte_overhead == 1.0
@@ -92,17 +92,20 @@ def test_smoke_profile_samples_match_jax(smoke_profiles):
 
 
 def _fixed_samples():
-    return [("gemm", (8, 8, 8), 1024.0, 900.0, 768.0, 2e-6),
-            ("gemm", (16, 16, 16), 8192.0, 4000.0, 3072.0, 5e-6),
-            ("flash_attention", (1, 8, 1, 4), 512.0, 800.0, 512.0, 1e-6),
-            ("rwkv6", (1, 8, 1, 4, 4), 256.0, 600.0, 400.0, 3e-6),
-            ("ssm_scan", (1, 8, 1, 4, 1, 4, 4), 300.0, 700.0, 350.0, 4e-6)]
+    """(kernel, shape, flops, ideal_bytes, wall_s)."""
+    return [("gemm", (8, 8, 8), 1024.0, 768.0, 2e-6),
+            ("gemm", (16, 16, 16), 8192.0, 3072.0, 5e-6),
+            ("flash_attention", (1, 8, 1, 4), 512.0, 512.0, 1e-6),
+            ("rwkv6", (1, 8, 1, 4, 4), 256.0, 400.0, 3e-6),
+            ("ssm_scan", (1, 8, 1, 4, 1, 4, 4), 300.0, 350.0, 4e-6)]
 
 
 def test_fit_matches_jax(monkeypatch):
-    """The JAX pass's fit (its bench functions replaced by fixed samples)
-    and the port's ``fit_profile`` on the same samples."""
-    j_samples = [j_cal.KernelSample(*s) for s in _fixed_samples()]
+    """The JAX pass's fit (its bench functions replaced by fixed samples
+    whose HLO bytes are their ideal bytes, as a kernel moves) and the
+    port's ``fit_profile`` on the same samples."""
+    j_samples = [j_cal.KernelSample(k, shp, f, ideal, ideal, w)
+                 for k, shp, f, ideal, w in _fixed_samples()]
     for name in ("_bench_gemm", "_bench_attention", "_bench_rwkv6",
                  "_bench_ssm_scan"):
         kernel = {"_bench_gemm": "gemm", "_bench_attention":
@@ -116,7 +119,7 @@ def test_fit_matches_jax(monkeypatch):
     for f in ("backend", "flops_per_s", "bytes_per_s", "byte_overhead",
               "bw_mem_model"):
         assert getattr(got, f) == getattr(want, f), f
-    assert got.byte_overhead > 1.0      # moved ≠ ideal here
+    assert got.byte_overhead == 1.0
     assert got.freq_for(128, 128) == want.freq_for(128, 128)
 
 
@@ -136,8 +139,8 @@ def test_apply_matches_jax(mcm):
 def test_profile_store_roundtrip(tmp_path):
     prof = t_cal.CalibratedHW(
         backend="cuda", flops_per_s=1e13, bytes_per_s=1e12, byte_overhead=1.0,
-        samples=(t_cal.KernelSample("gemm", (8, 8, 8), 1024.0, 768.0, 768.0,
-                                    1e-6, 3),))
+        samples=(t_cal.KernelSample("gemm", (8, 8, 8), 1024.0, 768.0, 1e-6,
+                                    3),))
     path = str(tmp_path / "prof.bin")
     t_cal.save_profile(prof, path)
     assert t_cal.load_profile(path) == prof

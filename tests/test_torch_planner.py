@@ -108,8 +108,6 @@ def test_topology_matches_jax(mcm, diag):
                  "bw_mem_entrance", "bw_nop_entrance", "group_size"):
         np.testing.assert_array_equal(getattr(tt, name), getattr(jt, name),
                                       err_msg=name)
-    for j_arr, t_arr in zip(jt.flow_net(), tt.flow_net()):
-        np.testing.assert_array_equal(t_arr, j_arr)
 
 
 def test_hetero_hw_matches_jax():
@@ -169,23 +167,28 @@ def test_evaluator_matches_jax(mcm, diag):
                 assert g.segments() == w.segments()
 
 
-def test_evaluator_backends_and_flow():
-    """The port evaluates with numpy ("auto" resolves to it); there is no
-    "jax" backend, and congestion="flow" raises naming the slice that
-    brings the netsim."""
-    _, th = _hw_pair(X=2, Y=2)
-    _, tt = _task_pair()
-    part = t_wl.uniform_partition(tt, 2, 2)
-    ref = t_ev.Evaluator(tt, th).evaluate(part).latency
-    assert t_ev.Evaluator(tt, th, backend="auto").evaluate(part).latency \
-        == ref
-    with pytest.raises(ValueError, match="backend"):
-        t_ev.Evaluator(tt, th, backend="jax")
-    flow = t_ev.Evaluator(tt, th, congestion="flow")
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        flow.evaluate(part)
-    with pytest.raises(ValueError, match="congestion"):
-        t_ev.EvalOptions(congestion="waterfall")
+@pytest.mark.parametrize("mesh", [(1, 1), (2, 2), (4, 2)])
+def test_evaluator_matches_jax_on_gpu_grids(mesh):
+    """The planner's hardware (``gpu_hw``: type C, 128x128 tiles, bf16)
+    and a served arch's op chain: batch outputs of both evaluators, with
+    and without redistribution and async execution."""
+    th = t_plan.gpu_hw(mesh)
+    jh = j_hw.HWConfig(**{k: (j_hw.MCMType(v) if k == "mcm_type" else v)
+                          for k, v in _hw_fields(th).items()})
+    tt = t_plan.arch_to_task(get_config("zamba2-2.7b"), 256, 8, layers=6)
+    jt = j_plan.arch_to_task(jax_get_config("zamba2-2.7b"), 256, 8,
+                             layers=6)
+    Px, Py, coll, rd = _random_population(jt, jh, 4, seed=sum(mesh))
+    for opts in OPTIONS:
+        want = j_ev.Evaluator(jt, jh, j_ev.EvalOptions(**opts)
+                              ).evaluate_batch(Px, Py, coll, rd)
+        got = t_ev.Evaluator(tt, th, t_ev.EvalOptions(**opts)
+                             ).evaluate_batch(Px, Py, coll, rd)
+        assert set(got) == set(want)
+        for key in want:
+            _close(got[key], want[key])
+    with pytest.raises(ValueError, match="energy_mode"):
+        t_ev.EvalOptions(energy_mode="total")
 
 
 def test_workload_domain_matches_jax():
@@ -208,19 +211,18 @@ def test_workload_domain_matches_jax():
 
 
 # ------------------------------------------------------------------- GA
-@pytest.mark.parametrize("engine", ["python", "vectorized"])
+@pytest.mark.parametrize("objective", ["latency", "edp"])
 @pytest.mark.parametrize("freeze", [False, True], ids=["free", "frozen"])
-def test_ga_matches_jax(engine, freeze):
+def test_ga_matches_jax(objective, freeze):
     """Same seed, same budget: the same objective, partition, mask and
-    trajectory."""
+    trajectory as the JAX package's reference (python) engine."""
     jh, th = _hw_pair(mcm_type="B", X=2, Y=3, R=16, C=16)
     jt, tt = _task_pair()
     opts = dict(redistribution=True, async_exec=True)
-    cfg = dict(population=16, generations=6, seed=3, freeze_redist=freeze,
-               engine=engine)
-    want = j_ga.run_ga(jt, jh, "edp", j_ev.EvalOptions(**opts),
-                       j_ga.GAConfig(**cfg))
-    got = t_ga.run_ga(tt, th, "edp", t_ev.EvalOptions(**opts),
+    cfg = dict(population=16, generations=6, seed=3, freeze_redist=freeze)
+    want = j_ga.run_ga(jt, jh, objective, j_ev.EvalOptions(**opts),
+                       j_ga.GAConfig(engine="python", **cfg))
+    got = t_ga.run_ga(tt, th, objective, t_ev.EvalOptions(**opts),
                       t_ga.GAConfig(**cfg))
     _close(got.objective, want.objective)
     _close(got.history, want.history)
@@ -229,13 +231,6 @@ def test_ga_matches_jax(engine, freeze):
         np.testing.assert_array_equal(getattr(got.partition, f),
                                       getattr(want.partition, f))
     np.testing.assert_array_equal(got.redist_mask, want.redist_mask)
-
-
-def test_ga_rejects_unported_backend():
-    _, th = _hw_pair(X=2, Y=2)
-    _, tt = _task_pair()
-    with pytest.raises(ValueError, match="backend"):
-        t_ga.run_ga(tt, th, cfg=t_ga.GAConfig(backend="jax"))
 
 
 # ------------------------------------------------------------- planner
