@@ -6,14 +6,18 @@
 Phases, each printing its lines; any failure exits nonzero:
   1. device: the card's name and power limit; TF32 off.
   2. build: every CUDA source of the port, one nvcc each, all started
-     together; registers and spills of each kernel.
+     together; registers and spills of each kernel, and for flash and
+     the GEMM each instantiation's registers, spill bytes and HMMA
+     (tensor-core) instructions: a bf16 kernel without HMMA, or flash
+     spilling at the serve path's head dims (64, 160), fails.
   3. kernels: each kernel (flash attention, WKV-6, the Mamba-2 SSD scan,
      the GEMM) against its plain PyTorch version on the card at every
      tested variant (the calibration pass's sample shapes among them)
      and, in f32 and bf16, at its main path's shape, where
      it is then timed (flash also at zamba2-2.7b's shared-attention
      shape; the GEMM at the calibration's largest size and at
-     zamba2-2.7b's in_proj shape).
+     zamba2-2.7b's in_proj shape); flash and the GEMM, and the PyTorch
+     call for the same function, also as runs of back-to-back calls.
   4. calibrate + plan: with every launch count at 0, the full calibration
      pass (profile_kernels() on the card) must launch each kernel once
      per sample and warm-up or timed call, and no other; the profile
@@ -38,6 +42,7 @@ from __future__ import annotations
 import collections
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -217,6 +222,28 @@ def time_ms(fn, reps=25, warmup=3):
     return statistics.median(times)
 
 
+def burst_ms(fn, calls=20, reps=5, warmup=3):
+    """Median over ``reps`` of one CUDA-event timing around ``calls``
+    back-to-back calls of ``fn``, over ``calls``: the device time of a
+    call when the host enqueues faster than the card runs (time_ms, one
+    call between its events, adds the host's launch overhead to a call
+    shorter than it)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
 def device_breakdown(fn):
     """One call of ``fn`` under torch.profiler: host wall time, summed
     kernel time, the device's busy share (a lower bound: the profiler
@@ -364,7 +391,61 @@ def phase_device():
     return card
 
 
+def kernel_label(mangled):
+    """``flash_bf16_kernel<160>`` for the mangled name of a kernel in a
+    namespace (the sources' anonymous one); other names as they are."""
+    if not mangled.startswith("_ZN"):
+        return mangled
+    pos, name = 3, None
+    while m := re.match(r"\d+", mangled[pos:]):
+        start = pos + m.end()
+        pos = start + int(m.group())
+        name = mangled[start:pos]
+    if name is None:
+        return mangled
+    args = re.match(r"I((?:Li\d+E)+)E", mangled[pos:])
+    ints = re.findall(r"Li(\d+)E", args.group(1)) if args else []
+    return name + (f"<{', '.join(ints)}>" if ints else "")
+
+
+def ptxas_usage(log_text):
+    """Per kernel of a ``-Xptxas=-v`` log: (registers, spill store bytes,
+    spill load bytes)."""
+    usage, name, spills = {}, None, (0, 0)
+    for line in log_text.splitlines():
+        if m := re.search(r"Function properties for (\S+)", line):
+            name = kernel_label(m.group(1))
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                            r"loads", line):
+            spills = (int(m.group(1)), int(m.group(2)))
+        elif (m := re.search(r"Used (\d+) registers", line)) and name:
+            usage[name] = (int(m.group(1)), *spills)
+            name, spills = None, (0, 0)
+    return usage
+
+
+def hmma_counts(lib, cuobjdump):
+    """HMMA (tensor-core mma) instructions per kernel in the SASS of
+    ``lib``."""
+    sass = subprocess.run([cuobjdump, "--dump-sass", str(lib)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    counts, name = collections.Counter(), None
+    for line in sass.splitlines():
+        if m := re.search(r"Function : (\S+)", line):
+            name = kernel_label(m.group(1))
+            counts[name] += 0
+        elif name and re.search(r"\bHMMA\b", line):
+            counts[name] += 1
+    return counts
+
+
 def phase_build():
+    """Every source built; registers and spills of each kernel; for the
+    flash and GEMM libraries, each instantiation's registers, spill bytes
+    and HMMA count. Fails if a bf16 kernel has no HMMA (its products
+    would not reach the tensor cores) or if flash at the serve path's
+    head dims (64, 160) spills."""
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
     libs = _build.build()
@@ -378,6 +459,22 @@ def phase_build():
                       "0 bytes spill loads")]
         log("build", f"{name}: {path.relative_to(ROOT)}; registers per "
             f"instance {regs}; spills {spills or 'none'}")
+    cuobjdump = str(Path(_build.find_nvcc()).parent / "cuobjdump")
+    for name in ("flash_attention", "gemm"):
+        usage = ptxas_usage(libs[name].with_suffix(".log").read_text())
+        hmma = hmma_counts(libs[name], cuobjdump)
+        log("build", f"{name}: {sum(hmma.values())} HMMA instructions")
+        for kernel, (regs, st, ld) in sorted(usage.items()):
+            log("build", f"  {kernel}: {regs} registers, spill stores {st} "
+                f"B, spill loads {ld} B, {hmma.get(kernel, 0)} HMMA")
+        bf16 = [k for k in usage if "bf16" in k]
+        assert bf16 and all(hmma.get(k, 0) > 0 for k in bf16), (
+            f"{name}: a bf16 kernel without HMMA: {dict(hmma)}")
+    usage = ptxas_usage(libs["flash_attention"].with_suffix(".log")
+                        .read_text())
+    for d in (64, 160):
+        regs, st, ld = usage[f"flash_bf16_kernel<{d}>"]
+        assert st == ld == 0, f"flash_bf16_kernel<{d}> spills {st}/{ld} B"
 
 
 def phase_kernels():
@@ -411,16 +508,23 @@ def phase_kernels():
     err = errs[torch.bfloat16]
     qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    kernel_ms = time_ms(lambda: flash_attention(q, k, v, causal=True))
+    def kernel():
+        return flash_attention(q, k, v, causal=True)
+
+    def library():
+        return sdpa(qh, kh, vh, is_causal=True, enable_gqa=True)
+    kernel_ms = time_ms(kernel)
     plain_ms = time_ms(lambda: blockwise_attention(q, k, v, causal=True))
-    library_ms = time_ms(lambda: sdpa(qh, kh, vh, is_causal=True,
-                                      enable_gqa=True))
+    library_ms = time_ms(library)
     bound_ms, bound_by, flops, nbytes = attention_bound_ms(q, k, v, True)
     row = {"name": "flash_attention", "shape": list(SMOLLM_SHAPE),
            "dtype": "bfloat16", "causal": True, "max_abs_err": err,
            "max_abs_err_f32": errs[torch.float32],
            "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-           "library_ms": library_ms, "bound_ms": bound_ms,
+           "library_ms": library_ms, "kernel_burst_ms": burst_ms(kernel),
+           "library_burst_ms": burst_ms(library),
+           "library_kernels": device_breakdown(library)["top_ms"],
+           "bound_ms": bound_ms,
            "bound_by": bound_by, "flops": flops, "bytes": nbytes,
            "tflops": flops / kernel_ms / 1e9}
     log("kernels", "smollm prefill shape " + json.dumps(row))
@@ -432,11 +536,19 @@ def phase_kernels():
     kw = dict(causal=True, window=ZAMBA_WINDOW)
     bound_ms, bound_by, flops, nbytes = attention_bound_ms(
         q, k, v, True, ZAMBA_WINDOW)
+    def zkernel():
+        return flash_attention(q, k, v, **kw)
+
+    def zlibrary():
+        return sdpa(qh, kh, vh, is_causal=True)
     zrow = {"name": "flash_attention", "shape": list(ZAMBA_ATTN_SHAPE),
             "dtype": "bfloat16", "causal": True, "window": ZAMBA_WINDOW,
-            "kernel_ms": time_ms(lambda: flash_attention(q, k, v, **kw)),
+            "kernel_ms": time_ms(zkernel),
             "plain_ms": time_ms(lambda: blockwise_attention(q, k, v, **kw)),
-            "library_ms": time_ms(lambda: sdpa(qh, kh, vh, is_causal=True)),
+            "library_ms": time_ms(zlibrary),
+            "kernel_burst_ms": burst_ms(zkernel),
+            "library_burst_ms": burst_ms(zlibrary),
+            "library_kernels": device_breakdown(zlibrary)["top_ms"],
             "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
             "bytes": nbytes}
     zrow["tflops"] = flops / zrow["kernel_ms"] / 1e9
@@ -576,6 +688,10 @@ def phase_gemm():
                "kernel_ms": kernel_ms,
                "plain_ms": time_ms(lambda: matmul_ref(a, b)),
                "library_ms": time_ms(lambda: torch.matmul(a, b)),
+               "kernel_burst_ms": burst_ms(lambda: matmul(a, b)),
+               "library_burst_ms": burst_ms(lambda: torch.matmul(a, b)),
+               "library_kernels": device_breakdown(
+                   lambda: torch.matmul(a, b))["top_ms"],
                "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
                "bytes": nbytes, "tflops": flops / kernel_ms / 1e9}
         log("kernels", f"gemm {name} " + json.dumps(row))

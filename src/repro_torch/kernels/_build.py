@@ -3,8 +3,9 @@
 Each ``kernels/csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper
 (``sm_90a``) into a shared library with a plain C interface,
 ``build/repro_torch/<name>-<hash>.so`` under the checkout, keyed by a
-hash of the source and the flags, so an edited source is rebuilt and an
-unchanged one is not. A plain C interface keeps PyTorch's headers out of the build: seconds
+hash of the source, of every shared header (``csrc/*.cuh``) and of the
+flags, so an edited source or header is rebuilt and an unchanged one is
+not. A plain C interface keeps PyTorch's headers out of the build: seconds
 per source instead of minutes.
 
 The build runs at first use (``load``); ``build()`` runs it up front.
@@ -48,8 +49,9 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = sources()[name]
-    h = hashlib.sha256(src.read_bytes())
+    h = hashlib.sha256(sources()[name].read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

@@ -12,31 +12,62 @@
 // through their strides with the last dim contiguous; o (B, Sq, H, Dv).
 // Ragged Sq and Skv are masked here, never padded in memory.
 //
-// Design. The TPU kernel walks a sequential grid axis over KV tiles and
-// carries its accumulator in VMEM scratch. Here one thread block owns one
-// (b, h, 32-row query tile) and loops over 64-key KV tiles itself. Each
-// KV tile is staged in shared memory as f32 (K rows padded to an odd
+// The TPU kernel walks a sequential grid axis over KV tiles and carries
+// its accumulator in VMEM scratch. Here one thread block owns one (b, h,
+// query tile) and loops over KV tiles itself. KV tiles that the causal or
+// window mask empties for the whole query tile are skipped; skipping is
+// exact, since such a tile would add exp(NEG_INF - m) = 0 to every row
+// that has a valid key. Query tiles run heaviest (latest, under the
+// causal mask) first: in the f32 kernel within each (b, h); in the bf16
+// kernel across groups of (b, h) pairs whose K and V fit in L2 together,
+// so that no long tile starts last and leaves the card idle at the end.
+// Masking uses the finite NEG_INF = -2e38 and the max(l, 1e-37) clamp of
+// the reference: with -INFINITY a fully masked tile gives inf - inf =
+// NaN. A row with no valid key at all (only possible when a window ends
+// before key 0 of a shorter KV sequence) is not defined by either
+// version. The two dtypes take two kernels.
+//
+// f32 (`flash_f32_kernel`), on the f32 CUDA cores (TF32 would miss the
+// f32 limits): a block owns 32 query rows and loops over 64-key tiles.
+// Each KV tile is staged in shared memory as f32 (K rows padded to an odd
 // stride, so lanes reading different rows hit different banks); the Q
 // tile is staged once. Each of the 4 warps owns 8 query rows: a lane
 // scores keys `lane` and `lane + 32` against all 8 rows, the row max and
 // sum are warp shuffles, and for P V a lane keeps output columns
 // `lane + 32 i` of the 8 rows in registers while the probabilities are
-// broadcast by shuffles. KV tiles that the causal or window mask empties
-// for the whole query tile are skipped; skipping is exact, since such a
-// tile would add exp(NEG_INF - m) = 0 to every row that has a valid key.
-// Query tiles run heaviest (latest, under the causal mask) first.
+// broadcast by shuffles.
 //
-// Masking uses the finite NEG_INF = -2e38 and the max(l, 1e-37) clamp of
-// the reference: with -INFINITY a fully masked tile gives inf - inf = NaN.
-// A row with no valid key at all (only possible when a window ends before
-// key 0 of a shorter KV sequence) is not defined by either version.
+// bf16 (`flash_bf16_kernel`): FlashAttention-2's design on the tensor
+// cores through mma.sync m16n8k16 (bf16 in, f32 sums; mma_sm90.cuh). A
+// block of 4 warps owns 64 query rows, 16 a warp. Dk and Dv are both
+// padded with zeros to D, the next multiple of 16 of the larger, in
+// shared memory; the kernel is a template over D. The Q tile is staged
+// once and goes into registers as A fragments through ldmatrix (at
+// D > 192 it stays in shared memory, for the registers). K and V tiles of
+// 64 keys (32 at D > 160, for the registers) stream through a 2-stage
+// ring filled by 16-byte cp.async, the next tile's copies in flight
+// during the current one's products. Rows are padded by 8 bf16 (an odd
+// number of 16-byte units), so ldmatrix hits no bank conflict. Each KV
+// tile, a warp: (1) S = Q K^T into f32 registers, K's B fragments by
+// ldmatrix; (2) the scale, the soft-cap and, only on a tile that one
+// needs, the masks, at the (qpos, kpos) of each accumulator element, in
+// log2 units; (3) the online softmax, its row max over the 4 lanes of a
+// quad by __shfl_xor_sync 1 and 2 (each lane keeps a partial row sum,
+// summed over the quad once at the end), exponentials by ex2.approx;
+// (4) P rounded to bf16 and turned in registers from the accumulator
+// layout into A fragments; (5) O += P V, V's B fragments by
+// ldmatrix.trans. P in bf16 is the one rounding the reference does not
+// make (it keeps P in f32): up to 2^-9 of each probability, inside the
+// bf16 limits (PERF.md). A row stride, head stride or base that is not
+// 16-byte aligned, or a head dim that is not a multiple of 8, takes an
+// element-by-element load into the same tiles, a branch of this kernel.
 //
 // What bounds it on an H100: at the smollm-360m prefill shape (B=4,
 // S=1024, H=15, KV=5, D=64, bf16, causal) the work is ~8 GFLOP against
 // ~21 MB of q/k/v/o, ~380 FLOP per byte, above the card's ~295 FLOP/byte
-// ridge: compute bound. This first version does its products on the f32
-// CUDA cores from shared memory (no tensor cores), so it sits far from
-// that bound; mma.sync / wgmma tiles and TMA loads are the next steps.
+// ridge: bound by operations (989 TFLOP/s through wgmma, which mma.sync
+// does not reach). At zamba2-2.7b's (B=4, S=1024, H=KV=32, D=160) the
+// bytes bound it.
 //
 // C interface for ctypes: launches on the given stream, does not
 // synchronise, allocates nothing, returns cudaGetLastError().
@@ -44,13 +75,14 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
+#include "mma_sm90.cuh"
+
 namespace {
 
-constexpr int kBQ = 32;               // query rows per block
-constexpr int kBK = 64;               // keys per KV tile (2 per lane)
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
-constexpr int kRows = kBQ / kWarps;   // query rows per warp
 constexpr float kNegInf = -2.0e38f;
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -66,16 +98,17 @@ struct Params {
   long long o_sb, o_ss, o_sh;
   int causal, window;                 // window <= 0: none
   float softcap, scale;               // softcap <= 0: none
+  // bf16 only: 16-byte rows in, 4-byte pairs out; (b, h) pairs a group
+  // of the block order, and B.
+  bool vec_q, vec_k, vec_v, vec_o;
+  int group, B;
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
+// ---- f32 on the CUDA cores --------------------------------------------
+
+constexpr int kBQ = 32;               // query rows per block
+constexpr int kBK = 64;               // keys per KV tile (2 per lane)
+constexpr int kRows = kBQ / kWarps;   // query rows per warp
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -89,9 +122,9 @@ __device__ __forceinline__ float warp_sum(float x) {
 }
 
 // NV = ceil(Dv / 32): output columns per lane, kept in registers.
-template <typename T, int NV>
+template <int NV>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const Params p) {
+flash_f32_kernel(const Params p) {
   extern __shared__ float smem[];
   const int Dk = p.Dk, Dv = p.Dv;
   const int ldk = Dk | 1;             // odd row stride: no bank conflicts
@@ -106,14 +139,14 @@ flash_fwd_kernel(const Params p) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int r0 = warp * kRows;
 
-  const T* qg = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* kg = static_cast<const T*>(p.k) + b * p.k_sb + kvh * p.k_sh;
-  const T* vg = static_cast<const T*>(p.v) + b * p.v_sb + kvh * p.v_sh;
-  T* og = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh;
+  const float* qg = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const float* kg = static_cast<const float*>(p.k) + b * p.k_sb + kvh * p.k_sh;
+  const float* vg = static_cast<const float*>(p.v) + b * p.v_sb + kvh * p.v_sh;
+  float* og = static_cast<float*>(p.o) + b * p.o_sb + h * p.o_sh;
 
   for (int i = tid; i < kBQ * Dk; i += kThreads) {
     const int r = i / Dk, d = i - r * Dk, qi = q0 + r;
-    qs[i] = qi < p.Sq ? to_f32(qg[qi * p.q_ss + d]) : 0.f;
+    qs[i] = qi < p.Sq ? qg[qi * p.q_ss + d] : 0.f;
   }
 
   // KV range that any row of this query tile can see.
@@ -134,11 +167,11 @@ flash_fwd_kernel(const Params p) {
     __syncthreads();                  // last tile consumed; Q tile visible
     for (int i = tid; i < kBK * Dk; i += kThreads) {
       const int r = i / Dk, d = i - r * Dk, kj = k0 + r;
-      ks[r * ldk + d] = kj < p.Skv ? to_f32(kg[kj * p.k_ss + d]) : 0.f;
+      ks[r * ldk + d] = kj < p.Skv ? kg[kj * p.k_ss + d] : 0.f;
     }
     for (int i = tid; i < kBK * Dv; i += kThreads) {
       const int r = i / Dv, d = i - r * Dv, kj = k0 + r;
-      vs[i] = kj < p.Skv ? to_f32(vg[kj * p.v_ss + d]) : 0.f;
+      vs[i] = kj < p.Skv ? vg[kj * p.v_ss + d] : 0.f;
     }
     __syncthreads();
 
@@ -213,17 +246,17 @@ flash_fwd_kernel(const Params p) {
 #pragma unroll
     for (int i = 0; i < NV; ++i) {
       const int d = lane + 32 * i;
-      if (d < Dv) store(og + qi * p.o_ss + d, acc[r][i] / den);
+      if (d < Dv) og[qi * p.o_ss + d] = acc[r][i] / den;
     }
   }
 }
 
-template <typename T, int NV>
-cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
+template <int NV>
+cudaError_t launch_f32(const Params& p, int B, cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * (size_t(kBQ) * p.Dk + size_t(kBK) * (p.Dk | 1) +
                        size_t(kBK) * p.Dv);
-  auto* fn = flash_fwd_kernel<T, NV>;
+  auto* fn = flash_f32_kernel<NV>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         fn, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
@@ -234,17 +267,362 @@ cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch(const Params& p, int B, cudaStream_t stream) {
+cudaError_t dispatch_f32(const Params& p, int B, cudaStream_t stream) {
   switch ((p.Dv + 31) / 32) {
-    case 1: return launch<T, 1>(p, B, stream);
-    case 2: return launch<T, 2>(p, B, stream);
-    case 3: return launch<T, 3>(p, B, stream);
-    case 4: return launch<T, 4>(p, B, stream);
-    case 5: return launch<T, 5>(p, B, stream);
-    case 6: return launch<T, 6>(p, B, stream);
-    case 7: return launch<T, 7>(p, B, stream);
-    case 8: return launch<T, 8>(p, B, stream);
+    case 1: return launch_f32<1>(p, B, stream);
+    case 2: return launch_f32<2>(p, B, stream);
+    case 3: return launch_f32<3>(p, B, stream);
+    case 4: return launch_f32<4>(p, B, stream);
+    case 5: return launch_f32<5>(p, B, stream);
+    case 6: return launch_f32<6>(p, B, stream);
+    case 7: return launch_f32<7>(p, B, stream);
+    case 8: return launch_f32<8>(p, B, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// ---- bf16 on the tensor cores -----------------------------------------
+
+using bf16 = __nv_bfloat16;
+constexpr int kBQ16 = 16 * kWarps;    // query rows a block, 16 a warp
+constexpr float kLog2e = 1.4426950408889634f;
+// K and V bytes of the (b, h) pairs whose blocks run together (see
+// dispatch_bf16): about half of the H100's 50 MB L2.
+constexpr long long kL2Budget = 24ll << 20;
+
+// 2^x; 0 for the masked scores (NEG_INF in either unit).
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// D: Dk and Dv padded to a multiple of 16.
+template <int D>
+struct FlashTiles {
+  static constexpr int kBKV = D <= 160 ? 64 : 32;   // keys per KV tile
+  static constexpr bool kQInRegs = D <= 192;
+  static constexpr int kLd = D + 8;                 // smem row stride
+  static constexpr int kQ = kBQ16 * kLd;            // bf16 in the Q tile
+  static constexpr int kKV = kBKV * kLd;            // ... in a K or V tile
+  static constexpr size_t kSmem = sizeof(bf16) * (kQ + 4 * kKV);
+};
+
+// Stages rows r0 .. r0 + R - 1 (those below `rows`) of a (rows, cols)
+// bf16 matrix with row stride `ld` into an R x D shared tile of row
+// stride D + 8; columns past `cols` and rows past `rows` become zeros.
+// With `vec` each 16-byte chunk is one cp.async (zero-filled when out of
+// range; `cols` is then a multiple of 8, so no chunk is partial);
+// otherwise element by element through registers.
+template <int R, int D>
+__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src,
+                                           long long ld, int rows, int r0,
+                                           int cols, bool vec, int tid) {
+  constexpr int kChunks = D / 8, kLd = D + 8;
+  for (int i = tid; i < R * kChunks; i += kThreads) {
+    const int r = i / kChunks, c = (i % kChunks) * 8, gr = r0 + r;
+    bf16* d = dst + r * kLd + c;
+    const bf16* s = src + gr * ld + c;
+    if (vec) {
+      const bool ok = gr < rows && c < cols;
+      mma::cp_async_16(mma::smem_addr(d), ok ? s : src, ok);
+    } else {
+      alignas(16) bf16 e[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        e[j] = gr < rows && c + j < cols ? s[j] : __float2bfloat16(0.f);
+      *reinterpret_cast<uint4*>(d) = *reinterpret_cast<const uint4*>(e);
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bf16_kernel(const Params p) {
+  using Tiles = FlashTiles<D>;
+  constexpr int kBKV = Tiles::kBKV, kLd = Tiles::kLd;
+  constexpr int KT = D / 16;      // k16 steps of Q K^T over the head dim
+  constexpr int NS = kBKV / 8;    // n-tiles of S (8 keys each)
+  constexpr int NO = D / 8;       // n-tiles of O (8 value dims each)
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* ks = qs + Tiles::kQ;          // 2 stages
+  bf16* vs = ks + 2 * Tiles::kKV;     // 2 stages
+
+  // Blocks run in groups of p.group (b, h) pairs, whose K and V fit in
+  // L2 together; inside a group, query tiles heaviest (latest, under the
+  // causal mask) first across all its pairs, so that no long tile starts
+  // last.
+  const int n_qt = (p.Sq + kBQ16 - 1) / kBQ16;
+  const int pairs = p.B * p.H, per_group = p.group * n_qt;
+  const int grp = blockIdx.x / per_group;
+  const int in_grp = blockIdx.x - grp * per_group;
+  const int grp_pairs = min(p.group, pairs - grp * p.group);
+  const int pair = grp * p.group + in_grp % grp_pairs;
+  const int q0 = (n_qt - 1 - in_grp / grp_pairs) * kBQ16;
+  const int h = pair % p.H, b = pair / p.H;
+  const int kvh = h / (p.H / p.KV);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int qw0 = q0 + 16 * warp;     // this warp's first query row
+
+  const bf16* qg = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const bf16* kg = static_cast<const bf16*>(p.k) + b * p.k_sb + kvh * p.k_sh;
+  const bf16* vg = static_cast<const bf16*>(p.v) + b * p.v_sb + kvh * p.v_sh;
+  bf16* og = static_cast<bf16*>(p.o) + b * p.o_sb + h * p.o_sh;
+
+  // KV range that any row of this query tile can see.
+  int kv_lo = 0, kv_hi = p.Skv;
+  if (p.causal) kv_hi = min(kv_hi, min(q0 + kBQ16, p.Sq));
+  if (p.window > 0) kv_lo = max(0, q0 - p.window + 1);
+  const int n_kv = kv_hi > kv_lo ? (kv_hi - kv_lo + kBKV - 1) / kBKV : 0;
+
+  auto load_kv = [&](int t) {
+    const int k0 = kv_lo + t * kBKV, s = t % 2;
+    stage_rows<kBKV, D>(ks + s * Tiles::kKV, kg, p.k_ss, p.Skv, k0, p.Dk,
+                        p.vec_k, tid);
+    stage_rows<kBKV, D>(vs + s * Tiles::kKV, vg, p.v_ss, p.Skv, k0, p.Dv,
+                        p.vec_v, tid);
+  };
+
+  stage_rows<kBQ16, D>(qs, qg, p.q_ss, p.Sq, q0, p.Dk, p.vec_q, tid);
+  mma::cp_async_commit();
+  if (n_kv > 0) load_kv(0);
+  mma::cp_async_commit();
+  mma::cp_async_wait<1>();            // the Q tile has landed
+  __syncthreads();
+
+  // ldmatrix row addresses of this lane (mma_sm90.cuh): A (Q) and the
+  // transposed B (V) take row lane % 16 at column offset 8 (lane / 16); K,
+  // an n-major B, takes key row (lane % 8) + 8 (lane / 16) at dim offset
+  // 8 ((lane / 8) % 2).
+  const int lrow = lane % 16, lcol = 8 * (lane / 16);
+  const int krow = lane % 8 + 8 * (lane / 16), kcol = 8 * ((lane / 8) % 2);
+  const bf16* q_lane = qs + (16 * warp + lrow) * kLd + lcol;
+
+  uint32_t qf[Tiles::kQInRegs ? KT : 1][4];
+  if constexpr (Tiles::kQInRegs) {
+#pragma unroll
+    for (int kk = 0; kk < KT; ++kk)
+      mma::ldmatrix_x4(qf[kk], mma::smem_addr(q_lane + 16 * kk));
+  }
+
+  // Scores are kept in log2 units: x * log2(e), so exp2 gives the
+  // probabilities; NEG_INF marks a masked score in either unit.
+  const bool capped = p.softcap > 0.f;
+  const float s_mul = capped ? p.scale / p.softcap : p.scale * kLog2e;
+  const float cap_mul = p.softcap * kLog2e;
+
+  float o[NO][4];
+#pragma unroll
+  for (int j = 0; j < NO; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+  // Running max and (this lane's part of the) sum of rows g and g + 8.
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  for (int t = 0; t < n_kv; ++t) {
+    const int k0 = kv_lo + t * kBKV;
+    if (t + 1 < n_kv) load_kv(t + 1);   // lands during this tile's sums
+    mma::cp_async_commit();
+    mma::cp_async_wait<1>();            // tile t has landed
+    __syncthreads();
+    const bf16* kst = ks + (t % 2) * Tiles::kKV;
+    const bf16* vst = vs + (t % 2) * Tiles::kKV;
+
+    // (1) S = Q K^T.
+    float s[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KT; ++kk) {
+      uint32_t qa[4];
+      if constexpr (Tiles::kQInRegs) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) qa[e] = qf[kk][e];
+      } else {
+        mma::ldmatrix_x4(qa, mma::smem_addr(q_lane + 16 * kk));
+      }
+      uint32_t r[NS / 2][4];
+#pragma unroll
+      for (int j = 0; j < NS; j += 2)
+        mma::ldmatrix_x4(r[j / 2], mma::smem_addr(
+            kst + (8 * j + krow) * kLd + 16 * kk + kcol));
+#pragma unroll
+      for (int j = 0; j < NS; j += 2) {
+        mma::mma_bf16_16816(s[j], qa, r[j / 2][0], r[j / 2][1]);
+        mma::mma_bf16_16816(s[j + 1], qa, r[j / 2][2], r[j / 2][3]);
+      }
+    }
+
+    // (2) Scale, soft-cap, masks (on tiles that reach past Skv, the
+    // diagonal or the window's edge for some row of this warp). Each
+    // branch is uniform over the warp and taken once a tile, outside the
+    // unrolled loops: inside them the compiler would predicate the
+    // soft-cap's tanh and the masks onto every tile.
+    if (capped) {
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[j][e] = cap_mul * tanhf(s[j][e] * s_mul);
+    } else {
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] *= s_mul;
+    }
+    if (k0 + kBKV > p.Skv || (p.causal && k0 + kBKV - 1 > qw0) ||
+        (p.window > 0 && k0 <= qw0 + 15 - p.window)) {
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qpos = qw0 + mma::frag_row(lane, e);
+          const int kpos = k0 + 8 * j + mma::frag_col(lane, e);
+          bool ok = kpos < p.Skv;
+          if (p.causal) ok = ok && kpos <= qpos;
+          if (p.window > 0) ok = ok && kpos > qpos - p.window;
+          if (!ok) s[j][e] = kNegInf;
+        }
+    }
+
+    // (3) Online softmax over rows g (elements 0, 1) and g + 8 (2, 3).
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = m[r];
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+        mx = fmaxf(mx, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
+      const float alpha = exp2_approx(m[r] - mx);
+      m[r] = mx;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+#pragma unroll
+        for (int e = 2 * r; e < 2 * r + 2; ++e) {
+          s[j][e] = exp2_approx(s[j][e] - mx);
+          sum += s[j][e];
+        }
+      }
+      l[r] = l[r] * alpha + sum;
+#pragma unroll
+      for (int j = 0; j < NO; ++j) {
+        o[j][2 * r] *= alpha;
+        o[j][2 * r + 1] *= alpha;
+      }
+    }
+
+    // (4) + (5) O += P V, P's A fragments packed from S's accumulators:
+    // keys 16 kk .. 16 kk + 15 are S n-tiles 2 kk (k 0-7) and 2 kk + 1.
+#pragma unroll
+    for (int kk = 0; kk < kBKV / 16; ++kk) {
+      const uint32_t pa[4] = {
+          mma::pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+          mma::pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+          mma::pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+          mma::pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int j = 0; j < NO; j += 2) {
+        uint32_t r[4];
+        mma::ldmatrix_x4_trans(r, mma::smem_addr(
+            vst + (16 * kk + lrow) * kLd + 8 * j + lcol));
+        mma::mma_bf16_16816(o[j], pa, r[0], r[1]);
+        mma::mma_bf16_16816(o[j + 1], pa, r[2], r[3]);
+      }
+    }
+    __syncthreads();                    // stage t % 2 free for tile t + 2
+  }
+  mma::cp_async_wait<0>();              // no copy outlives the block
+
+  // Epilogue: the quad's partial row sums, the clamp, one rounding.
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float den = l[r];
+    den += __shfl_xor_sync(kFull, den, 1);
+    den += __shfl_xor_sync(kFull, den, 2);
+    const float inv = 1.f / fmaxf(den, 1e-37f);
+    const int qi = qw0 + mma::frag_row(lane, 2 * r);
+    if (qi >= p.Sq) continue;
+    bf16* orow = og + qi * p.o_ss;
+#pragma unroll
+    for (int j = 0; j < NO; ++j) {
+      const int d = 8 * j + mma::frag_col(lane, 0);
+      const float v0 = o[j][2 * r] * inv, v1 = o[j][2 * r + 1] * inv;
+      if (p.vec_o && d + 1 < p.Dv) {
+        *reinterpret_cast<uint32_t*>(orow + d) = mma::pack_bf16(v0, v1);
+      } else {
+        if (d < p.Dv) orow[d] = __float2bfloat16(v0);
+        if (d + 1 < p.Dv) orow[d + 1] = __float2bfloat16(v1);
+      }
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch_bf16(const Params& p, int B, cudaStream_t stream) {
+  constexpr size_t smem = FlashTiles<D>::kSmem;
+  auto* fn = flash_bf16_kernel<D>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+    if (e != cudaSuccess) return e;
+  }
+  const long long blocks =
+      static_cast<long long>((p.Sq + kBQ16 - 1) / kBQ16) * p.H * B;
+  if (blocks > 0x7fffffff) return cudaErrorInvalidConfiguration;
+  fn<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+bool aligned(const void* ptr, int bytes) {
+  return reinterpret_cast<std::uintptr_t>(ptr) % bytes == 0;
+}
+
+// 16-byte row copies need a 16-byte base, strides of whole 16-byte units
+// and a width of whole 8-element chunks.
+bool rows16(const void* ptr, long long sb, long long ss, long long sh,
+            int width) {
+  return aligned(ptr, 16) && sb % 8 == 0 && ss % 8 == 0 && sh % 8 == 0 &&
+         width % 8 == 0;
+}
+
+cudaError_t dispatch_bf16(Params p, int B, cudaStream_t stream) {
+  // Groups of (b, h) pairs whose K and V fit in kL2Budget together, as
+  // even as the count allows.
+  const long long pairs = static_cast<long long>(B) * p.H;
+  const long long pair_bytes =
+      static_cast<long long>(p.Skv) * (p.Dk + p.Dv) * sizeof(bf16);
+  const long long fit = kL2Budget / pair_bytes;
+  const long long most = fit > 0 ? fit : 1;
+  const long long n_groups = (pairs + most - 1) / most;
+  p.group = static_cast<int>((pairs + n_groups - 1) / n_groups);
+  p.B = B;
+  p.vec_q = rows16(p.q, p.q_sb, p.q_ss, p.q_sh, p.Dk);
+  p.vec_k = rows16(p.k, p.k_sb, p.k_ss, p.k_sh, p.Dk);
+  p.vec_v = rows16(p.v, p.v_sb, p.v_ss, p.v_sh, p.Dv);
+  p.vec_o = aligned(p.o, 4) && p.o_sb % 2 == 0 && p.o_ss % 2 == 0 &&
+            p.o_sh % 2 == 0;
+  switch (((p.Dk > p.Dv ? p.Dk : p.Dv) + 15) / 16) {
+    case 1: return launch_bf16<16>(p, B, stream);
+    case 2: return launch_bf16<32>(p, B, stream);
+    case 3: return launch_bf16<48>(p, B, stream);
+    case 4: return launch_bf16<64>(p, B, stream);
+    case 5: return launch_bf16<80>(p, B, stream);
+    case 6: return launch_bf16<96>(p, B, stream);
+    case 7: return launch_bf16<112>(p, B, stream);
+    case 8: return launch_bf16<128>(p, B, stream);
+    case 9: return launch_bf16<144>(p, B, stream);
+    case 10: return launch_bf16<160>(p, B, stream);
+    case 11: return launch_bf16<176>(p, B, stream);
+    case 12: return launch_bf16<192>(p, B, stream);
+    case 13: return launch_bf16<208>(p, B, stream);
+    case 14: return launch_bf16<224>(p, B, stream);
+    case 15: return launch_bf16<240>(p, B, stream);
+    case 16: return launch_bf16<256>(p, B, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -266,11 +644,12 @@ extern "C" int flash_attention_fwd(
   const Params p{q, k, v, o, Sq, Skv, H, KV, Dk, Dv,
                  q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
                  v_sb, v_ss, v_sh, o_sb, o_ss, o_sh,
-                 causal, window, softcap, scale};
+                 causal, window, softcap, scale,
+                 false, false, false, false, 1, B};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
-  if (dtype == 0) e = dispatch<float>(p, B, s);
-  else if (dtype == 1) e = dispatch<__nv_bfloat16>(p, B, s);
+  if (dtype == 0) e = dispatch_f32(p, B, s);
+  else if (dtype == 1) e = dispatch_bf16(p, B, s);
   else e = cudaErrorInvalidValue;
   return static_cast<int>(e);
 }

@@ -1,7 +1,10 @@
 """What ``chip_smoke.py`` does not cover of the port's CUDA kernels: each
 kernel on strided views, its rejects, one launch per call, and the
-build; the GEMM at the JAX suite's shapes and the calibration's sizes
-and the SSD at the calibration's state dim 16. (Every kernel against
+build (its key covers the shared headers); the GEMM at the JAX suite's
+shapes and the calibration's sizes and the SSD at the calibration's
+state dim 16; the bf16 tensor-core paths of flash (every head-dim
+tiling, GQA, ragged lengths, rows that are not 16-byte aligned) and of
+the GEMM (K tails and unaligned rows). (Every kernel against
 its plain version at every variant, in both dtypes, is also
 ``chip_smoke.py``'s kernel phase.) The ``cuda``-marked tests
 need an NVIDIA Hopper card and nvcc and skip elsewhere. Imports no JAX,
@@ -9,6 +12,8 @@ so it runs where only the port is installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 """
+import itertools
+
 import pytest
 import torch
 
@@ -32,6 +37,27 @@ GEMM_TOL = {torch.float32: dict(rtol=2e-5, atol=1.6e-4),
 GEMM_SHAPES = [(128, 128, 128), (256, 512, 128), (100, 70, 130),
                (33, 257, 65), (256, 256, 256), (512, 512, 512),
                (768, 768, 768)]
+# The JAX suite's bf16 flash limit (chip_smoke.py's TOL[bfloat16]).
+FLASH_BF16_TOL = dict(rtol=2e-2, atol=8e-2)
+# The bf16 tensor-core flash path at every head-dim tiling it has, GQA 3:1,
+# Sq and Skv that are not multiples of 16 or 64: (B, Sq, Skv, H, KV, Dk,
+# Dv), kwargs.
+FLASH_BF16_CASES = {
+    **{f"d{d}": ((1, 130, 130, 3, 1, d, d), dict(causal=True))
+       for d in (16, 32, 64, 80, 128, 160, 256)},
+    "dk80_dv64": ((2, 96, 96, 8, 1, 80, 64), dict(causal=True, scale=0.125)),
+    "gqa3_cross_100x150": ((2, 100, 150, 6, 2, 64, 64), dict(causal=False)),
+    "gqa3_causal_77x77": ((2, 77, 77, 6, 2, 32, 32), dict(causal=True)),
+    "window50_softcap30": ((1, 300, 300, 6, 2, 64, 64),
+                           dict(causal=True, window=50, softcap=30.0)),
+    "d160_window70_softcap50": ((1, 200, 200, 2, 2, 160, 160),
+                                dict(causal=True, window=70, softcap=50.0)),
+}
+# bf16 GEMMs whose K or N rows are not 16-byte aligned (and K tails):
+# every order of 33, 257 and 65, then A aligned with B not, and the
+# reverse. (M, K, N).
+GEMM_BF16_RAGGED = [*itertools.permutations((33, 257, 65)),
+                    (33, 256, 65), (257, 65, 256)]
 
 
 @pytest.fixture
@@ -119,6 +145,40 @@ def test_flash_kernel_head_dim_160_with_window(cuda):
     torch.testing.assert_close(got, want, **F32_TOL)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_BF16_CASES)
+def test_flash_kernel_bf16_matches_plain(cuda, case):
+    """The tensor-core path against the plain version on the same bf16
+    inputs; one launch per call."""
+    (B, Sq, Skv, H, KV, dk, dv), kw = FLASH_BF16_CASES[case]
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q, k, v = (torch.randn(*s, generator=g, device=cuda).bfloat16()
+               for s in ((B, Sq, H, dk), (B, Skv, KV, dk), (B, Skv, KV, dv)))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, **kw)
+    assert flash_attention.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (B, Sq, H, dv)
+    want = blockwise_attention(q, k, v, **kw)
+    torch.testing.assert_close(got.float(), want.float(), **FLASH_BF16_TOL)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_bf16_reads_unaligned_rows(cuda):
+    """bf16 q, k, v as views of a fused projection whose row stride (an
+    odd number of elements) is not 16-byte aligned: the kernel's
+    element-by-element loads."""
+    B, S, H, KV, D = 2, 90, 6, 2, 64
+    g = torch.Generator(device=cuda).manual_seed(6)
+    qkv = torch.randn(B, S, (H + 2 * KV) * D + 1, generator=g,
+                      device=cuda).bfloat16()
+    q, k, v = (t.unflatten(-1, (-1, D)) for t in torch.split(
+        qkv[..., :-1], [H * D, KV * D, KV * D], dim=-1))
+    assert q.stride(1) % 8 != 0
+    got = flash_attention(q, k, v, causal=True)
+    want = blockwise_attention(q, k, v, causal=True)
+    torch.testing.assert_close(got.float(), want.float(), **FLASH_BF16_TOL)
+
+
 def _conv_output(cuda, B, S, H, P, G, N, dtype=torch.float32, seed=4):
     """x, B, C as the Mamba-2 layer gives them: views of one (B, S,
     H·P + 2·G·N) convolution output split along its last dim."""
@@ -201,6 +261,19 @@ def test_gemm_kernel_matches_plain(cuda, m, k, n, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", GEMM_BF16_RAGGED)
+def test_gemm_kernel_bf16_unaligned_rows(cuda, m, k, n):
+    """bf16 rows that are not 16-byte aligned take the kernel's
+    element-by-element staging; K tails, ragged M and N."""
+    g = torch.Generator(device=cuda).manual_seed(m * k + n)
+    a = torch.randn(m, k, generator=g, device=cuda).bfloat16()
+    b = torch.randn(k, n, generator=g, device=cuda).bfloat16()
+    got = matmul(a, b)
+    torch.testing.assert_close(got.float(), matmul_ref(a, b).float(),
+                               **GEMM_TOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
 def test_gemm_kernel_rejects_bad_inputs(cuda):
     a = torch.zeros(8, 16, device=cuda)
     with pytest.raises(ValueError, match="dtype"):
@@ -244,3 +317,16 @@ def test_library_is_keyed_by_source():
     path = _build.library_path("flash_attention")
     assert path.parent == _build.BUILD_DIR
     assert path.name.startswith("flash_attention-") and path.suffix == ".so"
+
+
+def test_library_is_keyed_by_shared_headers(tmp_path, monkeypatch):
+    """Editing a shared header changes the library's key, so the next
+    load rebuilds every source that may include it."""
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    (tmp_path / "kern.cu").write_text('#include "shared.cuh"\n')
+    header = tmp_path / "shared.cuh"
+    header.write_text("#pragma once\n")
+    before = _build.library_path("kern")
+    assert _build.library_path("kern") == before
+    header.write_text("#pragma once\n// edited\n")
+    assert _build.library_path("kern") != before
