@@ -13,10 +13,10 @@ Phases, each printing its lines; any failure exits nonzero:
   3. kernels: each kernel (flash attention, WKV-6, the Mamba-2 SSD scan,
      the GEMM) against its plain PyTorch version on the card at every
      tested variant (the calibration pass's sample shapes among them)
-     and, in f32 and bf16, at its main path's shape, where
-     it is then timed (flash also at zamba2-2.7b's shared-attention
-     shape; the GEMM at the calibration's largest size and at
-     zamba2-2.7b's in_proj shape); flash and the GEMM, and the PyTorch
+     and, in f32 and bf16, at its main path's shape, where it is then
+     timed (flash also checked and timed at zamba2-2.7b's
+     shared-attention shape in bf16; the GEMM at the calibration's
+     largest size and at zamba2-2.7b's in_proj shape); flash and the GEMM, and the PyTorch
      call for the same function, also as runs of back-to-back calls.
   4. calibrate + plan: with every launch count at 0, the full calibration
      pass (profile_kernels() on the card) must launch each kernel once
@@ -92,6 +92,13 @@ SMOLLM_SHAPE = (4, 1024, 1024, 15, 5, 64, 64)
 # zamba2-2.7b's shared attention in prefill (window 4096 > S: causal).
 ZAMBA_ATTN_SHAPE = (4, 1024, 1024, 32, 32, 160, 160)
 ZAMBA_WINDOW = 4096
+# At zamba2's shape the bf16 kernel runs its (b, h) pairs in 4 groups
+# whose K and V fit in L2 (no other shape here takes more than one). It is
+# held to a limit set as SMOLLM_BF16_TOL's: rtol one bf16 step; atol ~2.5x
+# the H100 reading of 2.83e-3 beyond rtol (max |o| 3.97, max_abs_err
+# 1.56e-2, one bf16 step there); the plain version with one 64-key tile
+# dropped from the last 64 rows reads 0.16 beyond rtol and fails.
+ZAMBA_BF16_TOL = dict(rtol=1e-2, atol=7e-3)
 # At the serve path's shape (group of 3, 1024 keys) the kernel is held
 # to TOL[float32] in f32, and in bf16 to a limit near its reading: both
 # versions sum in f32 and round once to bf16, in another order, so an
@@ -391,30 +398,27 @@ def phase_device():
     return card
 
 
-def kernel_label(mangled):
-    """``flash_bf16_kernel<160>`` for the mangled name of a kernel in a
-    namespace (the sources' anonymous one); other names as they are."""
-    if not mangled.startswith("_ZN"):
-        return mangled
-    pos, name = 3, None
-    while m := re.match(r"\d+", mangled[pos:]):
-        start = pos + m.end()
-        pos = start + int(m.group())
-        name = mangled[start:pos]
-    if name is None:
-        return mangled
-    args = re.match(r"I((?:Li\d+E)+)E", mangled[pos:])
-    ints = re.findall(r"Li(\d+)E", args.group(1)) if args else []
-    return name + (f"<{', '.join(ints)}>" if ints else "")
+def kernel_labels(mangled, bindir):
+    """``flash_bf16_kernel<160>`` for each mangled kernel name, from the
+    toolkit's ``cu++filt`` (which prints ``flash_bf16_kernel<(int)160>``
+    in its full signature)."""
+    out = subprocess.run([str(Path(bindir) / "cu++filt"), *mangled],
+                         capture_output=True, text=True, check=True,
+                         timeout=60).stdout.splitlines()
+    labels = {}
+    for m, d in zip(mangled, out):
+        hit = re.search(r"(\w+(?:<[^>]*>)?)\(", d)
+        labels[m] = re.sub(r"\(\w+\)", "", hit[1] if hit else d)
+    return labels
 
 
 def ptxas_usage(log_text):
-    """Per kernel of a ``-Xptxas=-v`` log: (registers, spill store bytes,
-    spill load bytes)."""
+    """Per mangled kernel name of a ``-Xptxas=-v`` log: (registers, spill
+    store bytes, spill load bytes)."""
     usage, name, spills = {}, None, (0, 0)
     for line in log_text.splitlines():
         if m := re.search(r"Function properties for (\S+)", line):
-            name = kernel_label(m.group(1))
+            name = m.group(1)
         elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                             r"loads", line):
             spills = (int(m.group(1)), int(m.group(2)))
@@ -424,16 +428,16 @@ def ptxas_usage(log_text):
     return usage
 
 
-def hmma_counts(lib, cuobjdump):
-    """HMMA (tensor-core mma) instructions per kernel in the SASS of
-    ``lib``."""
-    sass = subprocess.run([cuobjdump, "--dump-sass", str(lib)],
-                          capture_output=True, text=True, check=True,
-                          timeout=300).stdout
+def hmma_counts(lib, bindir):
+    """HMMA (tensor-core mma) instructions per mangled kernel name in the
+    SASS of ``lib``."""
+    sass = subprocess.run([str(Path(bindir) / "cuobjdump"), "--dump-sass",
+                           str(lib)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
     counts, name = collections.Counter(), None
     for line in sass.splitlines():
         if m := re.search(r"Function : (\S+)", line):
-            name = kernel_label(m.group(1))
+            name = m.group(1)
             counts[name] += 0
         elif name and re.search(r"\bHMMA\b", line):
             counts[name] += 1
@@ -459,22 +463,23 @@ def phase_build():
                       "0 bytes spill loads")]
         log("build", f"{name}: {path.relative_to(ROOT)}; registers per "
             f"instance {regs}; spills {spills or 'none'}")
-    cuobjdump = str(Path(_build.find_nvcc()).parent / "cuobjdump")
+    bindir = Path(_build.find_nvcc()).parent
     for name in ("flash_attention", "gemm"):
-        usage = ptxas_usage(libs[name].with_suffix(".log").read_text())
-        hmma = hmma_counts(libs[name], cuobjdump)
+        raw = ptxas_usage(libs[name].with_suffix(".log").read_text())
+        hmma = hmma_counts(libs[name], bindir)
+        labels = kernel_labels(sorted(raw.keys() | hmma.keys()), bindir)
+        usage = {labels[k]: u for k, u in raw.items()}
+        hmma = {labels[k]: n for k, n in hmma.items()}
         log("build", f"{name}: {sum(hmma.values())} HMMA instructions")
         for kernel, (regs, st, ld) in sorted(usage.items()):
             log("build", f"  {kernel}: {regs} registers, spill stores {st} "
                 f"B, spill loads {ld} B, {hmma.get(kernel, 0)} HMMA")
         bf16 = [k for k in usage if "bf16" in k]
         assert bf16 and all(hmma.get(k, 0) > 0 for k in bf16), (
-            f"{name}: a bf16 kernel without HMMA: {dict(hmma)}")
-    usage = ptxas_usage(libs["flash_attention"].with_suffix(".log")
-                        .read_text())
-    for d in (64, 160):
-        regs, st, ld = usage[f"flash_bf16_kernel<{d}>"]
-        assert st == ld == 0, f"flash_bf16_kernel<{d}> spills {st}/{ld} B"
+            f"{name}: a bf16 kernel without HMMA: {hmma}")
+        for d in (64, 160) if name == "flash_attention" else ():
+            regs, st, ld = usage[f"flash_bf16_kernel<{d}>"]
+            assert st == ld == 0, f"flash_bf16_kernel<{d}> spills {st}/{ld} B"
 
 
 def phase_kernels():
@@ -529,11 +534,17 @@ def phase_kernels():
            "tflops": flops / kernel_ms / 1e9}
     log("kernels", "smollm prefill shape " + json.dumps(row))
 
-    # zamba2-2.7b's shared attention (head dim 160), timed only: it is
-    # held to the plain version at d160_window100 above.
+    # zamba2-2.7b's shared attention (head dim 160) at its serve shape.
     q, k, v = rand_qkv(ZAMBA_ATTN_SHAPE, torch.bfloat16, seed=101)
     qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     kw = dict(causal=True, window=ZAMBA_WINDOW)
+    got = flash_attention(q, k, v, **kw).float()
+    want = blockwise_attention(q, k, v, **kw).float()
+    zerr = (got - want).abs().max().item()
+    log("kernels", f"flash_attention zamba2 bfloat16 shape {ZAMBA_ATTN_SHAPE}"
+        f": max_abs_err {zerr:.3e} (limit {ZAMBA_BF16_TOL})")
+    torch.testing.assert_close(got, want, **ZAMBA_BF16_TOL)
+    del got, want
     bound_ms, bound_by, flops, nbytes = attention_bound_ms(
         q, k, v, True, ZAMBA_WINDOW)
     def zkernel():
@@ -543,7 +554,7 @@ def phase_kernels():
         return sdpa(qh, kh, vh, is_causal=True)
     zrow = {"name": "flash_attention", "shape": list(ZAMBA_ATTN_SHAPE),
             "dtype": "bfloat16", "causal": True, "window": ZAMBA_WINDOW,
-            "kernel_ms": time_ms(zkernel),
+            "max_abs_err": zerr, "kernel_ms": time_ms(zkernel),
             "plain_ms": time_ms(lambda: blockwise_attention(q, k, v, **kw)),
             "library_ms": time_ms(zlibrary),
             "kernel_burst_ms": burst_ms(zkernel),

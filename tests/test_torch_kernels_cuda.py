@@ -39,12 +39,20 @@ GEMM_SHAPES = [(128, 128, 128), (256, 512, 128), (100, 70, 130),
                (768, 768, 768)]
 # The JAX suite's bf16 flash limit (chip_smoke.py's TOL[bfloat16]).
 FLASH_BF16_TOL = dict(rtol=2e-2, atol=8e-2)
-# The bf16 tensor-core flash path at every head-dim tiling it has, GQA 3:1,
-# Sq and Skv that are not multiples of 16 or 64: (B, Sq, Skv, H, KV, Dk,
+# The bf16 tensor-core flash path at every head-dim tiling it has (Q in
+# registers with 64-key tiles up to D 160, with 32-key tiles at 176-192,
+# Q in shared memory above), GQA 3:1, Sq and Skv that are not multiples
+# of 16 or 64, and (b, h) pairs at zamba2's head dim and length that the
+# kernel runs in more than one group whose K and V fit in L2 (128 pairs in
+# 4 groups of 32; 39 in groups of 20 and 19): (B, Sq, Skv, H, KV, Dk,
 # Dv), kwargs.
 FLASH_BF16_CASES = {
     **{f"d{d}": ((1, 130, 130, 3, 1, d, d), dict(causal=True))
-       for d in (16, 32, 64, 80, 128, 160, 256)},
+       for d in (16, 32, 64, 80, 128, 160, 192, 208, 256)},
+    "b8_h16_s1024_d160": ((8, 1024, 1024, 16, 16, 160, 160),
+                          dict(causal=True)),
+    "b3_h13_s1024_d160": ((3, 1024, 1024, 13, 13, 160, 160),
+                          dict(causal=True)),
     "dk80_dv64": ((2, 96, 96, 8, 1, 80, 64), dict(causal=True, scale=0.125)),
     "gqa3_cross_100x150": ((2, 100, 150, 6, 2, 64, 64), dict(causal=False)),
     "gqa3_causal_77x77": ((2, 77, 77, 6, 2, 32, 32), dict(causal=True)),
