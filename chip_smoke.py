@@ -6,18 +6,20 @@
 Phases, each printing its lines; any failure exits nonzero:
   1. device: the card's name and power limit; TF32 off.
   2. build: every CUDA source of the port, one nvcc each, all started
-     together; registers and spills of each kernel, and for flash and
-     the GEMM each instantiation's registers, spill bytes and HMMA
-     (tensor-core) instructions: a bf16 kernel without HMMA, or flash
-     spilling at the serve path's head dims (64, 160), fails.
+     together; registers and spills of each kernel, and for every
+     library each instantiation's registers, spill bytes and HMMA
+     (tensor-core) instructions: a bf16 kernel without HMMA, or a bf16
+     kernel spilling at a serve path's shape (flash at head dims 64 and
+     160, SSD at state dim 64, WKV-6 at head dim 64), fails.
   3. kernels: each kernel (flash attention, WKV-6, the Mamba-2 SSD scan,
      the GEMM) against its plain PyTorch version on the card at every
      tested variant (the calibration pass's sample shapes among them)
      and, in f32 and bf16, at its main path's shape, where it is then
      timed (flash also checked and timed at zamba2-2.7b's
      shared-attention shape in bf16; the GEMM at the calibration's
-     largest size and at zamba2-2.7b's in_proj shape); flash and the GEMM, and the PyTorch
-     call for the same function, also as runs of back-to-back calls.
+     largest size and at zamba2-2.7b's in_proj shape); every kernel, and
+     the PyTorch call for the same function where there is one, also as
+     runs of back-to-back calls.
   4. calibrate + plan: with every launch count at 0, the full calibration
      pass (profile_kernels() on the card) must launch each kernel once
      per sample and warm-up or timed call, and no other; the profile
@@ -444,12 +446,21 @@ def hmma_counts(lib, bindir):
     return counts
 
 
+# The bf16 instantiations that the serve paths launch, which must not
+# spill: flash at smollm-360m's and zamba2-2.7b's head dims, SSD at
+# zamba2-2.7b's state dim, WKV-6 at rwkv6-3b's head dim.
+SERVE_INSTANCES = {"flash_attention": ("flash_bf16_kernel<64>",
+                                       "flash_bf16_kernel<160>"),
+                   "ssm_scan": ("ssd_bf16_kernel<64>",),
+                   "wkv6": ("wkv6_bf16_kernel<64>",),
+                   "gemm": ()}
+
+
 def phase_build():
-    """Every source built; registers and spills of each kernel; for the
-    flash and GEMM libraries, each instantiation's registers, spill bytes
-    and HMMA count. Fails if a bf16 kernel has no HMMA (its products
-    would not reach the tensor cores) or if flash at the serve path's
-    head dims (64, 160) spills."""
+    """Every source built; registers and spills of each kernel; for every
+    library, each instantiation's registers, spill bytes and HMMA count.
+    Fails if a bf16 kernel has no HMMA (its products would not reach the
+    tensor cores) or if a serve path's bf16 instantiation spills."""
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
     libs = _build.build()
@@ -464,7 +475,7 @@ def phase_build():
         log("build", f"{name}: {path.relative_to(ROOT)}; registers per "
             f"instance {regs}; spills {spills or 'none'}")
     bindir = Path(_build.find_nvcc()).parent
-    for name in ("flash_attention", "gemm"):
+    for name, serve in SERVE_INSTANCES.items():
         raw = ptxas_usage(libs[name].with_suffix(".log").read_text())
         hmma = hmma_counts(libs[name], bindir)
         labels = kernel_labels(sorted(raw.keys() | hmma.keys()), bindir)
@@ -477,9 +488,9 @@ def phase_build():
         bf16 = [k for k in usage if "bf16" in k]
         assert bf16 and all(hmma.get(k, 0) > 0 for k in bf16), (
             f"{name}: a bf16 kernel without HMMA: {hmma}")
-        for d in (64, 160) if name == "flash_attention" else ():
-            regs, st, ld = usage[f"flash_bf16_kernel<{d}>"]
-            assert st == ld == 0, f"flash_bf16_kernel<{d}> spills {st}/{ld} B"
+        for kernel in serve:
+            regs, st, ld = usage[kernel]
+            assert st == ld == 0, f"{kernel} spills {st}/{ld} B"
 
 
 def phase_kernels():
@@ -602,14 +613,17 @@ def phase_wkv6():
                          RWKV_SHAPE[3], device="cuda")
         errs[dtype] = check(f"rwkv6-3b {str(dtype)[6:]} shape {RWKV_SHAPE}",
                             rkvw, u, s0, 32, tol)
-    kernel_ms = time_ms(lambda: wkv6(*rkvw, u, s0=s0))
+    def kernel():
+        return wkv6(*rkvw, u, s0=s0)
+    kernel_ms = time_ms(kernel)
     plain_ms = time_ms(lambda: wkv6_chunked(*rkvw, u, s0=s0, chunk=32))
     bound_ms, bound_by, flops, nbytes = wkv6_bound_ms(rkvw[0], s0)
     row = {"name": "wkv6", "shape": list(RWKV_SHAPE), "dtype": "bfloat16",
            "max_abs_err": errs[torch.bfloat16][0],
            "max_abs_err_state": errs[torch.bfloat16][1],
            "max_abs_err_f32": errs[torch.float32][0],
-           "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": None,
+           "kernel_ms": kernel_ms, "kernel_burst_ms": burst_ms(kernel),
+           "plain_ms": plain_ms, "library_ms": None,
            "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
            "bytes": nbytes, "gbytes_per_s": nbytes / kernel_ms / 1e6}
     log("kernels", "rwkv6-3b prefill shape " + json.dumps(row))
@@ -651,14 +665,17 @@ def phase_ssd():
         errs[dtype] = check(f"zamba2-2.7b {str(dtype)[6:]} shape "
                             f"{ZAMBA_SSD_SHAPE}", args, h0, 256,
                             SSD_TOL[dtype])
-    kernel_ms = time_ms(lambda: ssm_scan(*args, h0=h0))
+    def kernel():
+        return ssm_scan(*args, h0=h0)
+    kernel_ms = time_ms(kernel)
     plain_ms = time_ms(lambda: ssm_scan_chunked(*args, h0=h0, chunk=256))
     bound_ms, bound_by, flops, nbytes = ssd_bound_ms(args[0], args[3], h0)
     row = {"name": "ssm_scan", "shape": list(ZAMBA_SSD_SHAPE),
            "dtype": "bfloat16", "max_abs_err": errs[torch.bfloat16][0],
            "max_abs_err_state": errs[torch.bfloat16][1],
            "max_abs_err_f32": errs[torch.float32][0],
-           "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": None,
+           "kernel_ms": kernel_ms, "kernel_burst_ms": burst_ms(kernel),
+           "plain_ms": plain_ms, "library_ms": None,
            "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
            "bytes": nbytes, "gbytes_per_s": nbytes / kernel_ms / 1e6}
     log("kernels", "zamba2-2.7b prefill shape " + json.dumps(row))
@@ -1203,7 +1220,9 @@ def main():
         "name": name, "route": "cuda", "source": src, "replaces": tpu,
         "launches": launches[name],
         "max_abs_err": rows[name]["max_abs_err"],
-        "ms": rows[name]["kernel_ms"], "plain_ms": rows[name]["plain_ms"],
+        "ms": rows[name]["kernel_ms"],
+        "burst_ms": rows[name]["kernel_burst_ms"],
+        "plain_ms": rows[name]["plain_ms"],
         "bound_ms": rows[name]["bound_ms"],
         "bound_by": rows[name]["bound_by"],
         "library_ms": rows[name]["library_ms"]}

@@ -1,7 +1,9 @@
 // Thin wrappers over the PTX that the bf16 tensor-core paths of the GEMM
-// (gemm.cu) and flash attention (flash_attention.cu) share: ldmatrix,
-// mma.sync m16n8k16 (bf16 in, f32 sums), cp.async with zero fill, and the
-// map from an m16n8 accumulator fragment to its (row, col).
+// (gemm.cu), flash attention (flash_attention.cu), the SSD scan
+// (ssm_scan.cu) and WKV-6 (wkv6.cu) share: ldmatrix, mma.sync m16n8k16
+// (bf16 in, f32 sums), cp.async with zero fill, the map from an m16n8
+// accumulator fragment to its (row, col), and f32 pairs packed into bf16,
+// whole or split into a high and a low part.
 //
 // Notation for a warp's lanes: g = lane / 4 (the "group", 0..7) and
 // c = lane % 4 (the lane within its quad). A 32-bit register holds two
@@ -40,6 +42,17 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(addr));
+}
+
+// Two 8 x 8 matrices, from the row addresses of lanes 0-15 (lane l: row
+// l % 8 of matrix l / 8; the other lanes' addresses are not read); r[j]
+// as for ldmatrix_x4. As the B fragment of one m16n8k16 n-tile from a B
+// stored n-major: give lane l the address of n row l % 8, k offset
+// 8 ((l / 8) % 2).
+__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr));
 }
 
 // The same four matrices, each transposed on the way: lane (g, c)
@@ -97,6 +110,21 @@ __device__ __forceinline__ int frag_col(int lane, int i) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The two bf16 values of a register as f32 (`lo` half first).
+__device__ __forceinline__ float2 unpack_bf16(uint32_t r) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r));
+}
+
+// Two f32 values split into bf16 pairs hi + lo: hi = bf16(v), lo =
+// bf16(v - hi). A product of a split operand by a bf16 operand, as two
+// mma, keeps ~16 bits of the f32 operand where one mma keeps 8.
+__device__ __forceinline__ void split_bf16(float v0, float v1, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = pack_bf16(v0, v1);
+  const float2 h = unpack_bf16(hi);
+  lo = pack_bf16(v0 - h.x, v1 - h.y);
 }
 
 // 16 bytes from global to shared memory, asynchronously, bypassing L1.

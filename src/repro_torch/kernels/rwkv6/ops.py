@@ -11,8 +11,9 @@ from .ref import wkv6_ref  # noqa: F401
 
 def wkv6(r, k, v, w, u, s0=None, chunk: int = 32):
     """r/k/v/w (B,S,H,K), u (H,K), s0 (B,H,K,K) f32 or None →
-    (y like r, final state f32). ``chunk`` tiles the plain version only;
-    the kernel walks time one step at a time."""
+    (y like r, final state f32). ``chunk`` tiles the plain version only:
+    the kernel's bf16 path takes chunks of 32 steps on the tensor cores,
+    its f32 path walks time one step at a time."""
     if r.device.type == "cpu":
         return wkv6_chunked(r, k, v, w, u, s0=s0, chunk=chunk)
     return wkv6_kernel(r, k, v, w, u, s0=s0)

@@ -3,9 +3,11 @@ kernel on strided views, its rejects, one launch per call, and the
 build (its key covers the shared headers); the GEMM at the JAX suite's
 shapes and the calibration's sizes and the SSD at the calibration's
 state dim 16; the bf16 tensor-core paths of flash (every head-dim
-tiling, GQA, ragged lengths, rows that are not 16-byte aligned) and of
-the GEMM (K tails and unaligned rows). (Every kernel against
-its plain version at every variant, in both dtypes, is also
+tiling, GQA, ragged lengths, rows that are not 16-byte aligned), of
+the GEMM (K tails and unaligned rows), and of the chunked SSD and WKV-6
+(every state and head dim, ragged lengths, initial states, strided
+views, vanishing decays, a head dim over two column tiles). (Every
+kernel against its plain version at every variant, in both dtypes, is also
 ``chip_smoke.py``'s kernel phase.) The ``cuda``-marked tests
 need an NVIDIA Hopper card and nvcc and skip elsewhere. Imports no JAX,
 so it runs where only the port is installed:
@@ -30,6 +32,28 @@ from repro_torch.kernels.ssm_scan.kernel import ssm_scan
 F32_TOL = dict(rtol=3e-5, atol=1.2e-4)
 WKV_F32_TOL = dict(rtol=2e-3, atol=2e-3)   # the JAX suite's WKV limit
 SSD_F32_TOL = dict(rtol=2e-3, atol=2e-3)   # the JAX suite's SSD limit
+# The JAX suite's bf16 SSD and WKV limits (chip_smoke.py's SSD_TOL and
+# WKV_TOL in bf16).
+SSD_BF16_TOL = dict(rtol=6e-2, atol=6e-2)
+WKV_BF16_TOL = dict(rtol=6e-2, atol=6e-2)
+# The chunked bf16 SSD (chunks of 64): every state dim (8 padded to 16),
+# one step and a ragged length from a nonzero state, two groups, P = 72
+# over two 64-column tiles, and dt·|a| up to ~100 (vanishing decays):
+# (B, S, H, P, G, N), scale of dt.
+SSD_BF16_CASES = {
+    **{f"n{n}_s{S}": ((2, S, 4, 16 if n < 64 else 64, 2, n), 1.0)
+       for n in (8, 16, 64) for S in (1, 77)},
+    "n64_p72_s130": ((1, 130, 2, 72, 1, 64), 1.0),
+    "n64_decay0_s70": ((2, 70, 4, 64, 1, 64), 40.0),
+}
+# The chunked bf16 WKV-6 (chunks of 32): every head dim, one step and a
+# ragged length from a nonzero state, and a quarter of the decays at 0
+# (clamped to 1e-38, a subnormal): (B, S, H, K), share of decays at 0.
+WKV_BF16_CASES = {
+    **{f"k{k}_s{S}": ((2, S, 3, k), 0.0) for k in (16, 32, 64)
+       for S in (1, 77)},
+    "k64_decay0_s70": ((2, 70, 3, 64), 0.25),
+}
 # The JAX suite's GEMM limits (tests/test_kernels.py: rtol, atol = 8·rtol).
 GEMM_TOL = {torch.float32: dict(rtol=2e-5, atol=1.6e-4),
             torch.bfloat16: dict(rtol=3e-2, atol=0.24)}
@@ -187,14 +211,15 @@ def test_flash_kernel_bf16_reads_unaligned_rows(cuda):
     torch.testing.assert_close(got.float(), want.float(), **FLASH_BF16_TOL)
 
 
-def _conv_output(cuda, B, S, H, P, G, N, dtype=torch.float32, seed=4):
+def _conv_output(cuda, B, S, H, P, G, N, dtype=torch.float32, seed=4,
+                 dt_scale=1.0):
     """x, B, C as the Mamba-2 layer gives them: views of one (B, S,
     H·P + 2·G·N) convolution output split along its last dim."""
     g = torch.Generator(device=cuda).manual_seed(seed)
     xbc = torch.randn(B, S, H * P + 2 * G * N, generator=g,
                       device=cuda).to(dtype)
     x, bm, cm = torch.split(xbc, [H * P, G * N, G * N], dim=-1)
-    dt = torch.nn.functional.softplus(
+    dt = dt_scale * torch.nn.functional.softplus(
         torch.randn(B, S, H, generator=g, device=cuda))
     a = -torch.exp(0.5 * torch.randn(H, generator=g, device=cuda))
     d = 0.1 * torch.randn(H, generator=g, device=cuda)
@@ -249,6 +274,53 @@ def test_ssm_scan_kernel_state_dim_16(cuda, dtype):
     tol = 2e-3 if dtype == torch.float32 else 6e-2
     torch.testing.assert_close(y.float(), want_y.float(), rtol=tol, atol=tol)
     torch.testing.assert_close(hT, want_h, rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SSD_BF16_CASES)
+def test_ssm_scan_kernel_bf16_matches_plain(cuda, case):
+    """The chunked tensor-core path on strided views of a convolution
+    output, from a nonzero state, against the plain version; one launch
+    per call."""
+    shape, dt_scale = SSD_BF16_CASES[case]
+    args, h0 = _conv_output(cuda, *shape, dtype=torch.bfloat16,
+                            dt_scale=dt_scale)
+    assert not args[0].is_contiguous()
+    before = ssm_scan.launches
+    y, hT = ssm_scan(*args, h0=h0)
+    assert ssm_scan.launches == before + 1
+    assert y.dtype == torch.bfloat16 and torch.isfinite(y.float()).all()
+    want_y, want_h = ssm_scan_chunked(*args, h0=h0, chunk=64)
+    torch.testing.assert_close(y.float(), want_y.float(), **SSD_BF16_TOL)
+    torch.testing.assert_close(hT, want_h, **SSD_BF16_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", WKV_BF16_CASES)
+def test_wkv6_kernel_bf16_matches_plain(cuda, case):
+    """The chunked tensor-core path on head views of one fused bf16
+    projection, from a nonzero state, against the plain version; one
+    launch per call."""
+    (B, S, H, K), zeros = WKV_BF16_CASES[case]
+    g = torch.Generator(device=cuda).manual_seed(7)
+    proj = torch.randn(B, S, 4 * H * K, generator=g, device=cuda)
+    r, k, v, x = (t.unflatten(-1, (H, K)) for t in proj.chunk(4, dim=-1))
+    w = torch.exp(-torch.exp(0.5 * x))
+    if zeros:
+        w = torch.where(torch.rand(w.shape, generator=g, device=cuda)
+                        < zeros, 0.0, w)
+    fused = torch.cat([r, k, v, w], dim=-1).bfloat16()   # (B, S, H, 4K)
+    r, k, v, w = fused.split(K, dim=-1)
+    u = 0.3 * torch.randn(H, K, generator=g, device=cuda)
+    s0 = 0.3 * torch.randn(B, H, K, K, generator=g, device=cuda)
+    assert not r.is_contiguous()
+    before = wkv6.launches
+    y, sT = wkv6(r, k, v, w, u, s0=s0)
+    assert wkv6.launches == before + 1
+    assert y.dtype == torch.bfloat16 and torch.isfinite(y.float()).all()
+    want_y, want_s = wkv6_chunked(r, k, v, w, u, s0=s0, chunk=32)
+    torch.testing.assert_close(y.float(), want_y.float(), **WKV_BF16_TOL)
+    torch.testing.assert_close(sT, want_s, **WKV_BF16_TOL)
 
 
 @pytest.mark.cuda
