@@ -35,6 +35,17 @@ Phases, each printing its lines; any failure exits nonzero:
      logits must match the same model with the kernel's plain version;
      for rwkv6-3b and zamba2-2.7b also the recurrent states that prefill
      leaves and the logits of the decode step after it.
+  6. optimize: the paper's front door (repro_torch.core.api.optimize) on
+     ViT-B/16 over a 4x4 type-A HBM MCM, the four Table-3 schemes on
+     the latency objective and pipelining at batch 8. With the default
+     MIQPConfig the lattice scores every chunk with the float64 torch
+     evaluator on the card: its call counter must equal the lattice's
+     scoring calls, all on cuda. The same solve on the numpy backend
+     must agree (the tie contract); then the card's solve under
+     torch.profiler (kernels, copies and blocked host time per scoring
+     call, the device's busy share) and the AUTO_POPULATION_THRESHOLD
+     crossover, torch on the card vs numpy at P = 1..4096. No kernel
+     of the port lies on this path: every launch count stays 0.
 Then one JSON line of kernel numbers, and as the last line
 {"ok": true, "device": {...}}. Without a card it exits 1 and prints no
 result. Imports nothing of JAX.
@@ -1200,6 +1211,208 @@ def phase_serve_zamba2():
     return counts
 
 
+# Phase 6: the paper's front door. The lattice is held to the numpy
+# backend by the tie contract: the objective within TIE_RTOL, and the
+# partition equal or else, re-scored by the numpy evaluator, within
+# TIE_RTOL of the numpy objective (mirrored share vectors score equal in
+# numpy and may differ by an ulp on the card, where reductions sum in
+# another order).
+TIE_RTOL = 1e-9
+CROSSOVER_POPULATIONS = (1, 8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096)
+
+
+def random_genomes(task, hw, pop, seed):
+    """``pop`` sum-exact ViT genomes around the uniform partition (random
+    unit moves of up to 8 rows/columns), random collectors, and
+    redistribution on every chained pair."""
+    from repro_torch.core.workload import uniform_partition
+    rng = np.random.default_rng(seed)
+    base = uniform_partition(task, hw.X, hw.Y)
+    genomes = []
+    for arr in (base.Px, base.Py):
+        g = np.repeat(arr[None], pop, 0).astype(np.float64)
+        P, n, X = g.shape
+        d = rng.integers(0, X, (P, n))
+        r = (d + rng.integers(1, X, (P, n))) % X
+        take = np.take_along_axis(g, d[..., None], -1)[..., 0]
+        move = np.minimum(take, rng.integers(0, 9, (P, n)))
+        np.put_along_axis(g, d[..., None], (take - move)[..., None], -1)
+        give = np.take_along_axis(g, r[..., None], -1)[..., 0]
+        np.put_along_axis(g, r[..., None], (give + move)[..., None], -1)
+        genomes.append(g)
+    coll = rng.integers(0, hw.Y, (pop, len(task))).astype(np.float64)
+    return genomes[0], genomes[1], coll
+
+
+def scoring_breakdown(fn, calls_before):
+    """One call of ``fn`` (a lattice solve on the card) under
+    torch.profiler: host wall time, the device's busy time (kernels and
+    copies) and share, kernels per scoring call, device copy time and the
+    host's time blocked in copies and synchronisations per call."""
+    from repro_torch.core import miqp_lattice
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    calls = miqp_lattice.solve_lattice_batch.score_calls - calls_before
+    kernels = copies = 0
+    kernel_us = copy_us = blocked_us = 0.0
+    by_name = collections.Counter()
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            if e.name.startswith("Memcpy") or e.name.startswith("Memset"):
+                copies += 1
+                copy_us += e.self_device_time_total
+            else:
+                kernels += 1
+                kernel_us += e.self_device_time_total
+                by_name[e.name] += 1
+        elif e.name in ("cudaMemcpyAsync", "cudaStreamSynchronize",
+                        "cudaDeviceSynchronize", "cudaMemcpy"):
+            blocked_us += e.cpu_time_total
+    return {"wall_s": wall_us / 1e6, "scoring_calls": calls,
+            "kernels_per_call": kernels / calls,
+            "copies_per_call": copies / calls,
+            "device_kernel_ms_per_call": kernel_us / 1e3 / calls,
+            "device_copy_ms_per_call": copy_us / 1e3 / calls,
+            "host_blocked_in_copy_or_sync_ms_per_call":
+                blocked_us / 1e3 / calls,
+            "device_busy_share": (kernel_us + copy_us) / wall_us,
+            "top_kernels": by_name.most_common(4)}
+
+
+def phase_optimize():
+    """The paper's front door on the card: the quickstart's ViT-B/16 on a
+    4x4 type-A HBM MCM, the four Table-3 schemes on the latency
+    objective and pipelining at batch 8; the MIQP lattice's scoring on
+    the card held to the numpy backend's solve; a profile of the card's
+    solve; the AUTO_POPULATION_THRESHOLD crossover. No kernel of the port
+    lies on this path: every launch count must stay 0."""
+    from repro_torch.core import api, evaluator_torch, miqp_lattice
+    from repro_torch.core.evaluator import (AUTO_POPULATION_THRESHOLD,
+                                            EvalOptions, Evaluator)
+    from repro_torch.core.hw import make_hw
+    from repro_torch.core.miqp import MIQPConfig, run_miqp
+    from repro_torch.core.workload import Partition
+    from repro_torch.graphs import vit_task
+
+    task = vit_task(batch=1)
+    hw = make_hw("A", grid=4, memory="hbm")
+    log("optimize", f"{task.name}: {len(task)} GEMMs, "
+        f"{task.total_flops / 1e9:.1f} GFLOPs; "
+        + hw.topology.describe().replace("\n", "; "))
+    reset_launch_counts()
+    results = {}
+    for method in api.METHODS:
+        calls = evaluator_torch.grid_evaluate.calls
+        calls.clear()
+        miqp_lattice.solve_lattice_batch.score_calls = 0
+        r = api.optimize(task, hw, method, "latency",
+                         miqp_config=MIQPConfig(time_limit=30))
+        scored = miqp_lattice.solve_lattice_batch.score_calls
+        results[method] = r
+        log("optimize", json.dumps({
+            "method": method, "latency_us": r.latency * 1e6, "edp": r.edp,
+            "speedup_vs_baseline": r.speedup_vs_baseline,
+            "solve_s": r.solve_seconds, "lattice_scoring_calls": scored,
+            "torch_evaluator_calls": dict(calls)}))
+        assert math.isfinite(r.latency) and r.latency > 0, method
+        assert r.speedup_vs_baseline > 0, method
+        if method == "miqp":
+            # The default MIQPConfig scores every lattice chunk with the
+            # torch evaluator, on the card.
+            assert scored > 0 and dict(calls) == {"cuda": scored}, (
+                scored, dict(calls))
+    pipe = results["miqp"].pipeline(batch=8)
+    log("optimize", f"miqp with cross-sample pipelining (batch 8): "
+        f"{pipe.speedup:.4f}x ({pipe.pipelined * 1e6:.1f} us vs "
+        f"{pipe.sequential * 1e6:.1f} us sequential, {pipe.engine})")
+    assert 0 < pipe.pipelined <= pipe.sequential
+
+    # The same MIQP solve scored on numpy: the tie contract.
+    t0 = time.perf_counter()
+    ref = api.optimize(task, hw, "miqp", "latency",
+                       miqp_config=MIQPConfig(time_limit=30,
+                                              backend="numpy"))
+    numpy_s = time.perf_counter() - t0
+    card = results["miqp"]
+    same = (np.array_equal(card.partition.Px, ref.partition.Px)
+            and np.array_equal(card.partition.Py, ref.partition.Py)
+            and np.array_equal(card.partition.collectors,
+                               ref.partition.collectors))
+    rel = abs(card.latency - ref.latency) / ref.latency
+    rescored = ref.latency
+    if not same:
+        ev = Evaluator(task, hw.replace(diagonal_links=True),
+                       EvalOptions(redistribution=True, async_exec=True))
+        rescored = ev.evaluate(Partition(card.partition.Px,
+                                         card.partition.Py,
+                                         card.partition.collectors),
+                               card.redist_mask).latency
+    log("optimize", json.dumps({
+        "miqp_solve_s_torch_cuda": card.solve_seconds,
+        "miqp_solve_s_numpy": ref.solve_seconds,
+        "numpy_optimize_wall_s": numpy_s,
+        "latency_us_torch_cuda": card.latency * 1e6,
+        "latency_us_numpy": ref.latency * 1e6, "rel_diff": rel,
+        "partition_equal": same, "card_partition_rescored_rel":
+            abs(rescored - ref.latency) / ref.latency}))
+    assert rel <= TIE_RTOL, rel
+    assert abs(rescored - ref.latency) <= TIE_RTOL * ref.latency, rescored
+
+    # The card's lattice solve under torch.profiler.
+    hw_used = hw.replace(diagonal_links=True)
+    solve_opts = EvalOptions(redistribution=True, async_exec=False)
+    before = miqp_lattice.solve_lattice_batch.score_calls
+    prof = scoring_breakdown(
+        lambda: run_miqp(task, hw_used, "latency", solve_opts,
+                         MIQPConfig()), before)
+    log("optimize", "lattice solve on the card, profiled: "
+        + json.dumps(prof))
+
+    # The auto threshold: torch on the card against numpy, one
+    # population of ViT genomes at each size, copies included; the two
+    # agree at every size.
+    ev_np = Evaluator(task, hw_used, solve_opts)
+    ev_t = Evaluator(task, hw_used, solve_opts, backend="torch")
+    rows = []
+    for pop in CROSSOVER_POPULATIONS:
+        Px, Py, coll = random_genomes(task, hw_used, pop, seed=pop)
+        rd = np.repeat(ev_np.chain_valid[None], pop, 0).astype(np.float64)
+        want = ev_np.evaluate_batch(Px, Py, coll, rd)
+        got = ev_t.evaluate_batch(Px, Py, coll, rd)
+        for key in want:
+            np.testing.assert_allclose(got[key], want[key], rtol=TIE_RTOL,
+                                       atol=0, err_msg=key)
+        np_ms = 1e3 * statistics.median(
+            _host_time(lambda: ev_np.evaluate_batch(Px, Py, coll, rd))
+            for _ in range(3))
+        t_ms = 1e3 * statistics.median(
+            _host_time(lambda: ev_t.evaluate_batch(Px, Py, coll, rd))
+            for _ in range(5))
+        rows.append({"P": pop, "numpy_ms": np_ms, "torch_cuda_ms": t_ms})
+        log("optimize", "crossover " + json.dumps(rows[-1]))
+    wins = [r["P"] for r in rows if r["torch_cuda_ms"] < r["numpy_ms"]]
+    log("optimize", json.dumps({
+        "AUTO_POPULATION_THRESHOLD": AUTO_POPULATION_THRESHOLD,
+        "smallest_P_torch_cuda_wins": min(wins) if wins else None}))
+
+    counts = launch_counts()
+    assert not any(counts.values()), counts
+    return counts
+
+
+def _host_time(fn):
+    t0 = time.perf_counter()
+    fn()
+    return time.perf_counter() - t0
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -1212,7 +1425,7 @@ def main():
             "ssm_scan": phase_ssd(), "gemm": phase_gemm()}
     launches = collections.Counter()
     for phase in (phase_calibrate_plan, phase_serve, phase_serve_rwkv6,
-                  phase_serve_zamba2):
+                  phase_serve_zamba2, phase_optimize):
         launches.update(phase())
     log("serve", f"launches over the calibration pass and the three serve "
         f"paths: {dict(launches)}")

@@ -1,5 +1,5 @@
 """The paper's analytical engines, the port's own copies of the JAX
-package's numpy modules (plain numpy, no torch needed):
+package's numpy modules, with a float64 torch evaluator for the card:
 
   * :mod:`.topology` — mesh geometry: entrance grouping and masks,
     hop matrices (with diagonal links).
@@ -8,13 +8,31 @@ package's numpy modules (plain numpy, no torch needed):
   * :mod:`.workload` — GEMM-sequence tasks and partitions.
   * :mod:`.evaluator` — the end-to-end latency/energy/EDP model
     (Sec. 4.3/4.4) with redistribution and async execution
-    (Sec. 5.2/5.3), numpy, the closed-form congestion regime pick.
-  * :mod:`.ga` — the Sec.-6.2 genetic algorithm (reference engine).
+    (Sec. 5.2/5.3), the closed-form congestion regime pick; numpy
+    reference backend plus a torch backend on the card
+    (:mod:`.evaluator_torch`).
+  * :mod:`.sweep` — batched evaluation sweeps with result caching.
+  * :mod:`.ga` / :mod:`.miqp` — the two solvers (Sec. 6.2/6.3): the GA's
+    reference engine, the HiGHS MILP, and :mod:`.miqp_lattice`, the
+    batched lattice-enumeration MIQP engine scored on the card;
+    :mod:`.simba` — the heuristic baseline.
+  * :mod:`.pipelining` — RCPSP cross-sample pipelining (Sec. 5.4).
+  * :mod:`.api` — one-call front door, :func:`optimize`.
 """
-from .evaluator import EvalOptions, EvalResult, Evaluator  # noqa: F401
+from .api import (ScheduleResult, baseline_result, optimize,  # noqa: F401
+                  refine_schedule)
+from .evaluator import (AUTO_POPULATION_THRESHOLD, BACKENDS,  # noqa: F401
+                        EvalOptions, EvalResult, Evaluator,
+                        resolve_auto_backend)
 from .ga import GAConfig, GAResult, run_ga  # noqa: F401
 from .hw import (TABLE2, ChipletClass, HWConfig, MCMType,  # noqa: F401
                  Topology, make_hw)
+from .miqp import (MIQPConfig, MIQPResult, resolve_auto_engine,  # noqa: F401
+                   run_miqp)
+from .pipelining import (PIPELINE_ENGINES, PipelineConfig,  # noqa: F401
+                         PipelineResult, pipeline_batch,
+                         resolve_auto_pipeline_engine)
+from .sweep import EvalPoint, eval_sweep  # noqa: F401
 from .workload import (GemmOp, Partition, Task,  # noqa: F401
                        clamp_partition_to_domain, partition_domain,
                        uniform_partition)

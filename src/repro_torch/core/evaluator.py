@@ -4,16 +4,19 @@ Implements ``Cost = Sche({comp(*_i), comm(*_i)})`` (eq. 3–6) for a Task on
 an HWConfig under a candidate Partition, returning latency, energy and EDP
 plus a per-op breakdown that a cross-sample pipeliner (Sec. 5.4) consumes.
 
-The port's copy of the JAX package's ``core/evaluator.py``, its numpy
-reference path only. All math is vectorized with a leading *population*
-axis so that the genetic algorithm (Sec. 6.2) evaluates its whole
-population in one call. float64 throughout — cycle counts overflow
-float32 mantissas.
+The port's copy of the JAX package's ``core/evaluator.py``. All math is
+vectorized with a leading *population* axis so that the genetic
+algorithm (Sec. 6.2) evaluates its whole population in one call.
+float64 throughout — cycle counts overflow float32 mantissas.
 
-The JAX package's ``backend`` choice (numpy or jax) and its
-``congestion="flow"`` mode (link rates from the max-min waterfilling
-netsim) have no counterpart yet: they come with the port's paper-engine
-slice (ROADMAP.md, A.5), together with their first caller.
+Two interchangeable backends, as in the JAX package:
+  * ``backend="numpy"`` — the reference implementation (this module);
+  * ``backend="torch"`` — the same equations on float64 torch tensors on
+    an explicit device (:mod:`.evaluator_torch`, the counterpart of the
+    JAX package's ``evaluator_jax``), held to the reference at rtol 1e-9.
+
+The JAX package's ``congestion="flow"`` mode (link rates from the
+max-min waterfilling netsim) has no counterpart yet (ROADMAP.md, A.3).
 
 Modeling conventions:
   * Off-chip and NoP serialization per phase combine as ``max`` — the
@@ -34,7 +37,8 @@ import numpy as np
 from .hw import HWConfig
 from .workload import Partition, Task
 
-__all__ = ["EvalOptions", "EvalResult", "Evaluator"]
+__all__ = ["AUTO_POPULATION_THRESHOLD", "BACKENDS", "EvalOptions",
+           "EvalResult", "Evaluator", "resolve_auto_backend"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,11 +73,48 @@ class EvalResult:
         ]
 
 
+BACKENDS = ("numpy", "torch", "auto")
+
+#: ``backend="auto"`` crossover point: torch at or above this population
+#: size, numpy below (below it the ~140 launches and 14 copies of a
+#: torch call cost more than numpy's work). Measured on an H100 by
+#: ``chip_smoke.py``'s phase 6 on ViT-B/16's 74 ops (PERF.md §5-6):
+#: torch on the card first beats numpy at P = 32 (the JAX package's
+#: 1024 was its jax backend's crossover on a CPU container). Tasks with
+#: fewer ops cross over later: numpy's time scales with P x ops.
+AUTO_POPULATION_THRESHOLD = 32
+
+
+def resolve_auto_backend(backend: str, population: int) -> str:
+    """Resolve ``"auto"`` to a concrete engine for a given batch size:
+    torch at ``population >= AUTO_POPULATION_THRESHOLD``, numpy below.
+    The choice never depends on whether a card is present: torch on
+    ``device=None`` means the card, and raises without one."""
+    if backend == "auto":
+        return ("torch" if population >= AUTO_POPULATION_THRESHOLD
+                else "numpy")
+    return backend
+
+
 class Evaluator:
-    """Evaluates partitions for one (Task, HWConfig, EvalOptions) triple."""
+    """Evaluates partitions for one (Task, HWConfig, EvalOptions) triple.
+
+    ``backend`` selects the execution engine: ``"numpy"`` (reference) or
+    ``"torch"`` (float64 torch on ``device``; ``None`` means the card).
+    Both produce identical result dicts of float64 numpy arrays.
+    ``"auto"`` defers the choice to each ``evaluate_batch`` call: torch
+    for populations ≥ :data:`AUTO_POPULATION_THRESHOLD`, numpy below.
+    """
 
     def __init__(self, task: Task, hw: HWConfig,
-                 options: EvalOptions = EvalOptions()):
+                 options: EvalOptions = EvalOptions(),
+                 backend: str = "numpy", device=None):
+        if backend not in BACKENDS:
+            raise ValueError(f"unknown backend {backend!r}; one of {BACKENDS}")
+        self.backend = backend
+        self.device = device
+        self._consts = None          # lazy constant bundle (torch backend)
+        self._device_consts = None   # its device-resident copy
         self.task = task
         self.hw = hw
         self.opts = options
@@ -164,6 +205,27 @@ class Evaluator:
         Py: np.ndarray,      # [P, n, Y] float
         collectors: np.ndarray,  # [P, n] int
         redist: np.ndarray,  # [P, n] float in {0,1}: redistribute after op i
+    ) -> dict[str, np.ndarray]:
+        backend = resolve_auto_backend(self.backend, int(Px.shape[0]))
+        if backend == "torch":
+            from . import evaluator_torch
+            if self._device_consts is None:
+                self._device_consts = evaluator_torch.to_device(
+                    self.consts(), self.device)
+            return evaluator_torch.batch_evaluate(
+                self._device_consts, self.opts, Px, Py, collectors, redist,
+                self.device)
+        return self._evaluate_batch_numpy(Px, Py, collectors, redist)
+
+    def consts(self):
+        """Constant bundle for the torch backend (cached)."""
+        if self._consts is None:
+            from . import evaluator_torch
+            self._consts = evaluator_torch.consts_from_evaluator(self)
+        return self._consts
+
+    def _evaluate_batch_numpy(
+        self, Px, Py, collectors, redist
     ) -> dict[str, np.ndarray]:
         hw, top = self.hw, self.top
         B = self.B

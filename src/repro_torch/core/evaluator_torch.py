@@ -1,0 +1,284 @@
+"""torch backend for the analytical evaluator — float64 tensors on an
+explicit device, a grid axis over configurations and a population axis
+over candidates.
+
+The counterpart of the JAX package's ``core/evaluator_jax.py``. It
+mirrors :meth:`.evaluator.Evaluator._evaluate_batch_numpy` (eqs. 3–12)
+op for op, so the two backends agree to float64 round-off; the numpy
+implementation stays the reference, and the port holds this module to
+it at rtol 1e-9 (``tests/test_torch_evaluator_torch.py``).
+
+Structure:
+  * every per-(Task, HWConfig) constant — GEMM dims, hop matrices,
+    entrance masks, Table-2 scalars — travels in a constant bundle
+    (:func:`consts_from_evaluator`), a dict of numpy arrays that
+    :func:`to_device` moves to the device once;
+  * :func:`grid_evaluate` takes constants stacked on a leading grid axis
+    ``G`` and genomes ``[G, P, ...]`` with an explicit population axis
+    ``P``; :func:`batch_evaluate` is its ``G = 1`` case. Plain eager
+    torch: no ``vmap``, no ``torch.compile``;
+  * float64 throughout: every tensor is created as ``torch.float64``
+    (torch's default dtype is float32, and cycle counts overflow float32
+    mantissas).
+
+Only the closed-form congestion regime (the JAX package's
+``congestion="regime"``) exists here; the flow mode comes with the
+port's netsim (ROADMAP.md, A.3). ``device=None`` means the card and
+raises without one (:func:`repro_torch.device.resolve_device`).
+
+``grid_evaluate.calls`` counts the calls by device type (``"cuda"``,
+``"cpu"``), as the kernels' wrappers count their launches.
+"""
+from __future__ import annotations
+
+import collections
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from .evaluator import EvalOptions
+
+__all__ = ["EvalConsts", "batch_evaluate", "consts_from_evaluator",
+           "grid_evaluate", "to_device"]
+
+#: dict of per-(Task, HWConfig) constants: per-op [n], per-chiplet
+#: [X, Y], per-row/cross-row [X] / [X-1], per-entrance [E...] arrays and
+#: 0-d scalars, each with a leading grid axis when stacked.
+EvalConsts = Dict[str, Any]
+
+_F8 = torch.float64
+
+
+def consts_from_evaluator(ev) -> EvalConsts:
+    """The constant bundle of a numpy :class:`Evaluator`: float64 (and
+    one bool) numpy arrays, equal bit for bit to the JAX package's
+    ``consts_from_evaluator`` on the keys the regime path reads (it
+    leaves out the flow network's)."""
+    hw = ev.hw
+    f8 = lambda a: np.asarray(a, dtype=np.float64)  # noqa: E731
+    return {
+        "M": f8(ev.M), "K": f8(ev.K), "N": f8(ev.N),
+        "sync": f8(ev.sync),
+        "w_scale": f8(ev.w_scale), "epilogue": f8(ev.epilogue),
+        "chain_valid": f8(ev.chain_valid),
+        "hA": f8(ev.hA), "hW": f8(ev.hW), "h_min": f8(ev.h_min),
+        "row_mask": f8(ev.row_mask), "col_mask": f8(ev.col_mask),
+        "ent_mask": f8(ev.ent_mask), "ent_pos": f8(ev.ent_pos),
+        "is3d": np.asarray(ev.top.entrance_is_3d, dtype=bool),
+        "links": f8(ev.links),
+        "bw_nop_xy": f8(ev.bw_nop_xy), "freq_xy": f8(ev.freq_xy),
+        "row_bw": f8(ev.row_bw), "cross_bw": f8(ev.cross_bw),
+        "bw_ent": f8(ev.bw_ent_e), "bw_nop_ent": f8(ev.bw_nop_ent),
+        "B": f8(ev.B), "bw_nop_min": f8(ev.bw_nop_min),
+        "R": f8(float(hw.R)), "C": f8(float(hw.C)),
+        "e_sram": f8(hw.e_sram_bit * 8.0), "e_mem": f8(hw.e_mem_bit * 8.0),
+        "e_nop": f8(hw.e_nop_bit_hop * 8.0), "e_mac": f8(hw.e_mac_cycle),
+    }
+
+
+def to_device(consts: EvalConsts, device=None) -> dict[str, torch.Tensor]:
+    """Move a constant bundle (single or grid-stacked) to ``device`` once,
+    so repeated calls skip the host-to-device copies (no-op on tensors
+    already there)."""
+    dev = resolve_device(device)
+    return {k: torch.as_tensor(v, device=dev) for k, v in consts.items()}
+
+
+def _evaluate(c: dict[str, torch.Tensor], Px, Py, collectors, redist, *,
+              redistribution: bool, async_exec: bool, energy_mode: str
+              ) -> dict[str, torch.Tensor]:
+    """Line-for-line port of ``Evaluator._evaluate_batch_numpy`` with a
+    leading grid axis: constants ``[G, ...]``, ``Px [G, P, n, X]``,
+    ``Py [G, P, n, Y]``, ``collectors`` and ``redist`` ``[G, P, n]``."""
+    G, P, n, X = Px.shape
+    Y = Py.shape[-1]
+
+    def per_op(k):            # [G, n] -> [G, 1, n]
+        return c[k][:, None, :]
+
+    def scalar(k, dims):      # [G] -> [G, 1, ...] over ``dims`` axes
+        return c[k].reshape((G,) + (1,) * dims)
+
+    B4 = scalar("B", 3)
+    R, C = c["R"], c["C"]
+    M, K, N = per_op("M"), per_op("K"), per_op("N")
+    bw_ent = c["bw_ent"][:, None, None, :]                   # [G,1,1,E]
+
+    redist = redist * per_op("chain_valid")
+    if not redistribution:
+        redist = torch.zeros_like(redist)
+    # redist_in[i] = output of op i-1 was redistributed (A already local).
+    redist_in = torch.cat(
+        [torch.zeros_like(redist[..., :1]), redist[..., :-1]], dim=-1)
+    keepA = 1.0 - redist_in          # fraction of A loads from memory
+    redist_out = redist
+
+    # -------------------------------------------------- data volumes
+    chunk = Px[..., :, None] * Py[..., None, :] * scalar("B", 4)
+    inA = Px * K[..., None] * B4                             # [G,P,n,X]
+    inW = Py * (K * per_op("w_scale"))[..., None] * B4       # [G,P,n,Y]
+
+    # --------------------------------------------- phase 1: data load
+    A_e = torch.einsum("gex,gpnx->gpne", c["row_mask"], inA)
+    W_e = torch.einsum("gey,gpny->gpne", c["col_mask"], inW)
+    t_off_in = ((keepA[..., None] * A_e + W_e) / bw_ent).amax(dim=-1)
+
+    tA_xy = inA[..., :, None] * c["hA"][:, None, None]       # bytes*hops
+    tW_xy = inW[..., None, :] * c["hW"][:, None, None]
+    nop_in_xy = ((keepA[..., None, None] * tA_xy + tW_xy)
+                 / c["bw_nop_xy"][:, None, None])
+    t_in = torch.maximum(t_off_in, nop_in_xy.amax(dim=(-1, -2)))
+
+    # ------------------------------------------------ phase 2: compute
+    fill = (2.0 * scalar("R", 2) + scalar("C", 2) + K - 2.0)[..., None, None]
+    tiles = (torch.ceil(Px / scalar("R", 3))[..., :, None]
+             * torch.ceil(Py / scalar("C", 3))[..., None, :])
+    cyc = fill * tiles
+    cyc = cyc + (per_op("epilogue")[..., None, None] * Px[..., :, None]
+                 * Py[..., None, :] / scalar("C", 4))
+    t_comp_xy = cyc / c["freq_xy"][:, None, None]
+    t_comp = t_comp_xy.amax(dim=(-1, -2))
+
+    # ----------------------------------------- phase 3a: offload path
+    out_e = torch.einsum("gexy,gpnxy->gpne", c["ent_mask"], chunk)
+    t_off_out = (out_e / bw_ent).amax(dim=-1)
+    out_at_ent = torch.einsum("gexy,gpnxy->gpne", c["ent_pos"], chunk)
+    is3d = c["is3d"][:, None, None, :]
+    nonlocal_out = out_e - torch.where(is3d, out_at_ent, 0.0)
+    links = c["links"][:, None, None, :]
+    t_collect = torch.where(
+        links > 0,
+        nonlocal_out / (links * c["bw_nop_ent"][:, None, None, :]),
+        0.0,
+    ).amax(dim=-1)
+    t_offload = torch.maximum(t_collect, t_off_out)
+
+    # --------------------------------- phase 3b: redistribution path
+    # (Sec. 5.2) Step 1: row gather toward collector column c.
+    yidx = torch.arange(Y, device=Px.device)
+    cc = collectors[..., None]
+    left_m = (yidx < cc).to(_F8)                             # [G,P,n,Y]
+    right_m = (yidx > cc).to(_F8)
+    left_x = torch.einsum("gpnxy,gpny->gpnx", chunk, left_m)
+    right_x = torch.einsum("gpnxy,gpny->gpnx", chunk, right_m)
+    row_bw = c["row_bw"][:, None, None]
+    t1 = (torch.maximum(left_x, right_x) / row_bw).amax(dim=-1)
+    # Step 2: broadcast the assembled row block along the row.
+    rowbytes = Px * N[..., None] * B4                        # [G,P,n,X]
+    t2 = (rowbytes / row_bw).amax(dim=-1)
+    # Step 3: column redistribution from Px_i to Px_{i+1}, on normalized
+    # cumulative fractions scaled by op-i bytes.
+    cumf = torch.cumsum(Px, dim=-1) / torch.clamp(M[..., None], min=1.0)
+    cumf_next = torch.cat([cumf[:, :, 1:], cumf[:, :, -1:]], dim=2)
+    if X > 1:
+        crossing = (torch.abs(cumf - cumf_next)[..., : X - 1]
+                    * M[..., None])
+        cross_bytes = crossing * N[..., None] * B4
+        t3 = (cross_bytes / c["cross_bw"][:, None, None]).amax(dim=-1)
+    else:
+        cross_bytes = cumf[..., :0]
+        t3 = torch.zeros_like(t1)
+    t_redist = t1 + t2 + t3
+
+    t_out = torch.where(redist_out > 0, t_redist, t_offload)
+
+    # Output sync for softmax/layernorm-class ops (eq.-9 convention).
+    t_sync = (per_op("sync")
+              * (Px.amax(dim=-1) * 4.0 * scalar("B", 2) * max(Y - 1, 1))
+              / scalar("bw_nop_min", 2))
+
+    # ------------------------------------------------------- schedule
+    if async_exec:
+        fused_xy = nop_in_xy + t_comp_xy
+        t_fused = torch.maximum(fused_xy.amax(dim=(-1, -2)), t_off_in)
+        core = torch.where(per_op("sync") > 0, t_in + t_comp, t_fused)
+    else:
+        core = t_in + t_comp
+    t_ops = core + t_out + t_sync
+    latency = t_ops.sum(dim=-1)
+
+    # --------------------------------------------------------- energy
+    sram_bytes = (Y * inA.sum(dim=-1) + X * inW.sum(dim=-1)
+                  + chunk.sum(dim=(-1, -2)))
+    E_sram = scalar("e_sram", 1) * sram_bytes.sum(dim=-1)
+
+    if energy_mode == "paper":
+        # eq. 4.4.1 verbatim: c_MAC * cycles * R * C * (X*Y).
+        E_mac = scalar("e_mac", 1) * (
+            cyc.amax(dim=(-1, -2)) * scalar("R", 2) * scalar("C", 2)
+            * X * Y).sum(dim=-1)
+    else:
+        E_mac = scalar("e_mac", 1) * (
+            cyc.sum(dim=(-1, -2)) * scalar("R", 2)
+            * scalar("C", 2)).sum(dim=-1)
+
+    mem_bytes = (keepA[..., None] * A_e + W_e
+                 + (1.0 - redist_out)[..., None] * out_e).sum(dim=(-1, -2))
+    E_mem = scalar("e_mem", 1) * mem_bytes
+
+    # NoP bytes×hops: loads + (collection | redistribution).
+    load_bh = (keepA[..., None, None] * tA_xy + tW_xy).sum(dim=(-1, -2))
+    collect_bh = (chunk * c["h_min"][:, None, None]).sum(dim=(-1, -2))
+    red_bh = (
+        (left_x + right_x).sum(dim=-1)              # step-1 gather
+        + rowbytes.sum(dim=-1) * max(Y - 1, 1)      # step-2 broadcast
+        + (cross_bytes.sum(dim=-1) * Y if X > 1 else 0.0)  # step 3
+    )
+    nop_bh = load_bh + torch.where(redist_out > 0, red_bh, collect_bh)
+    E_nop = scalar("e_nop", 1) * nop_bh.sum(dim=-1)
+
+    energy = E_sram + E_mac + E_mem + E_nop
+    return {
+        "latency": latency,
+        "energy": energy,
+        "edp": energy * latency,
+        "t_in": t_in,
+        "t_comp": t_comp,
+        "t_out": t_out,
+        "E_sram": E_sram,
+        "E_mac": E_mac,
+        "E_mem": E_mem,
+        "E_nop": E_nop,
+    }
+
+
+def grid_evaluate(consts_stack: EvalConsts, opts: EvalOptions,
+                  Px, Py, collectors, redist, device=None
+                  ) -> dict[str, np.ndarray]:
+    """Grid-batched evaluation: every array carries a leading grid axis
+    (consts ``[G, ...]``, genomes ``[G, P, ...]``). Returns numpy float64
+    arrays with the numpy backend's keys, shaped ``[G, P]`` and
+    ``[G, P, n]``."""
+    dev = resolve_device(device)
+    grid_evaluate.calls[dev.type] += 1
+    c = to_device(consts_stack, dev)
+
+    def genome(a):
+        return torch.as_tensor(np.ascontiguousarray(a, dtype=np.float64),
+                               device=dev)
+
+    with torch.no_grad():
+        out = _evaluate(c, genome(Px), genome(Py), genome(collectors),
+                        genome(redist),
+                        redistribution=bool(opts.redistribution),
+                        async_exec=bool(opts.async_exec),
+                        energy_mode=opts.energy_mode)
+    return {k: v.cpu().numpy() for k, v in out.items()}
+
+
+grid_evaluate.calls = collections.Counter()
+
+
+def batch_evaluate(consts: EvalConsts, opts: EvalOptions,
+                   Px, Py, collectors, redist, device=None
+                   ) -> dict[str, np.ndarray]:
+    """Population-batched evaluation (genomes ``[P, ...]``, one config):
+    the ``G = 1`` case of :func:`grid_evaluate`, outputs ``[P]`` and
+    ``[P, n]``."""
+    one = {k: v[None] for k, v in consts.items()}
+    out = grid_evaluate(one, opts, np.asarray(Px)[None],
+                        np.asarray(Py)[None], np.asarray(collectors)[None],
+                        np.asarray(redist)[None], device)
+    return {k: v[0] for k, v in out.items()}

@@ -18,10 +18,10 @@ Constraint-preserving operators:
 Fitness is the vectorized evaluator over the whole population at once.
 
 The port's copy of the JAX package's ``core/ga.py``: its reference
-engine (the per-individual offspring loop, ``engine="python"``) on the
-numpy evaluator, the one the layout planner runs. The JAX package's
-vectorized and device-resident engines and its fitness backends come
-with their first caller in the port (ROADMAP.md, A.5).
+engine (the per-individual offspring loop, ``engine="python"``), with the
+fitness on either evaluator backend (``"numpy"``, ``"torch"`` or
+``"auto"``). The JAX package's vectorized and device-resident engines
+(``engine="vectorized"``) come with ROADMAP.md A.2.
 """
 from __future__ import annotations
 
@@ -29,12 +29,16 @@ import dataclasses
 
 import numpy as np
 
-from .evaluator import EvalOptions, Evaluator
+from .evaluator import EvalOptions, Evaluator, resolve_auto_backend
 from .hw import HWConfig
 from .workload import (Partition, Task, clamp_partition_to_domain,
                        partition_domain, uniform_partition)
 
-__all__ = ["GAConfig", "GAResult", "run_ga"]
+__all__ = ["ENGINES", "GAConfig", "GAResult", "run_ga"]
+
+#: Evolution engines of the JAX package; the port runs "python" and
+#: raises on "vectorized" (ROADMAP.md A.2).
+ENGINES = ("python", "vectorized")
 
 #: Attempts per rejection-sampled unit move.
 MOVE_ATTEMPTS = 4
@@ -55,6 +59,11 @@ class GAConfig:
     seed: int = 0
     freeze_redist: bool = False  # force redistribution on all valid pairs
                                  # (planner: no shared-memory path exists)
+    backend: str = "numpy"       # fitness backend: "numpy" | "torch" |
+                                 # "auto" (torch at population >= 1024)
+    device: str | None = None    # torch fitness device (None: the card)
+    engine: str = "python"       # evolution engine: "python" (the port
+                                 # has no "vectorized" yet, ROADMAP A.2)
 
 
 @dataclasses.dataclass
@@ -117,11 +126,24 @@ def run_ga(
     objective: str = "latency",
     options: EvalOptions | None = None,
     cfg: GAConfig = GAConfig(),
+    backend: str | None = None,
+    engine: str | None = None,
 ) -> GAResult:
-    """Run the Sec-6.2 GA: per-individual offspring loop."""
+    """Run the Sec-6.2 GA: per-individual offspring loop. ``backend``
+    picks the fitness evaluator (``"numpy"``/``"torch"``/``"auto"``, on
+    ``cfg.device``); ``engine`` the evolution loop. Both default to the
+    :class:`GAConfig` fields."""
+    engine = engine or cfg.engine
+    if engine not in ENGINES:
+        raise ValueError(f"unknown engine {engine!r}; one of {ENGINES}")
+    if engine == "vectorized":
+        raise NotImplementedError(
+            "GAConfig(engine='vectorized') needs the port's batched GA "
+            "engines (ROADMAP.md A.2); use engine='python'")
     if options is None:
         options = EvalOptions(redistribution=True, async_exec=True)
-    ev = Evaluator(task, hw, options)
+    backend = resolve_auto_backend(backend or cfg.backend, cfg.population)
+    ev = Evaluator(task, hw, options, backend=backend, device=cfg.device)
     rng = np.random.default_rng(cfg.seed)
     n = len(task)
     X, Y = hw.X, hw.Y

@@ -7,8 +7,8 @@ package's ``kernels/calibrate.py``).
 hand-written CUDA kernels on the card and their plain versions on the
 CPU: ``gemm.ops.matmul``, ``flash_attention.ops.attention`` (causal),
 ``rwkv6.ops.wkv6`` and ``ssm_scan.ops.ssm_scan``, at the JAX pass's
-sizes, on the same f32 inputs drawn from ``np.random.default_rng(0)``
-(the JAX pass's default seed) in the same order. Each sample is timed
+sizes, on the same f32 inputs drawn from ``np.random.default_rng(seed)``
+in the same order (seed 0 by default, as in the JAX pass). Each sample is timed
 as the JAX pass times it: one untimed call first (on the card it also
 builds the kernel at first use), then the median of ``reps`` calls,
 each between two CUDA events on the card and by ``time.perf_counter`` on
@@ -68,9 +68,6 @@ PROFILE_SCHEMA = 1
 # the architectural ratio used for bw_nop, since one card has no
 # interconnect to measure.
 NVLINK_OVER_HBM = 450e9 / 3.35e12
-
-# The JAX pass's default seed: both passes draw the same inputs.
-_SEED = 0
 
 
 # --------------------------------------------------------------------------
@@ -266,13 +263,14 @@ def _bench_ssm_scan(rng, sizes, reps, device) -> list[KernelSample]:
     return out
 
 
-def profile_kernels(*, smoke: bool = False, reps: int = 3,
+def profile_kernels(*, smoke: bool = False, reps: int = 3, seed: int = 0,
                     device=None) -> CalibratedHW:
     """Run the kernel microbenchmarks and fit a :class:`CalibratedHW`.
-    ``device=None`` means the card (raises without one); ``"cpu"`` runs
-    the plain versions."""
+    ``seed`` draws the inputs, as the JAX pass's does. ``device=None``
+    means the card (raises without one); ``"cpu"`` runs the plain
+    versions."""
     device = resolve_device(device)
-    rng = np.random.default_rng(_SEED)
+    rng = np.random.default_rng(seed)
     if smoke:
         gemm_sizes = [(128, 128, 128), (256, 256, 256)]
         attn_sizes = [(1, 128, 2, 32)]

@@ -91,6 +91,35 @@ def test_smoke_profile_samples_match_jax(smoke_profiles):
     assert got.nop_frac == pytest.approx(450 / 3350)
 
 
+@pytest.mark.parametrize("seed", [0, 7])
+def test_smoke_inputs_match_jax_at_seed(monkeypatch, seed):
+    """Both passes draw the same f32 inputs from ``seed``, in the same
+    order (each bench's ``_measure`` replaced by a recorder)."""
+    drawn = {"jax": [], "torch": []}
+
+    def record_jax(fn, args, *, reps):
+        drawn["jax"].append([np.asarray(a) for a in args])
+        return 1.0, 1.0, 1e-6
+
+    def record_torch(fn, args, *, reps, device):
+        drawn["torch"].append([a.numpy() for a in args
+                               if isinstance(a, torch.Tensor)])
+        return 1e-6
+
+    monkeypatch.setattr(j_cal, "_measure", record_jax)
+    monkeypatch.setattr(t_cal, "_measure", record_torch)
+    j_cal.profile_kernels(smoke=True, reps=1, seed=seed)
+    t_cal.profile_kernels(smoke=True, reps=1, seed=seed, device="cpu")
+    assert len(drawn["torch"]) == len(drawn["jax"]) == 5
+    for got, want in zip(drawn["torch"], drawn["jax"]):
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+    first = drawn["torch"][0][0]
+    t_cal.profile_kernels(smoke=True, reps=1, seed=seed + 1, device="cpu")
+    assert not np.array_equal(drawn["torch"][-5][0], first)
+
+
 def _fixed_samples():
     """(kernel, shape, flops, ideal_bytes, wall_s)."""
     return [("gemm", (8, 8, 8), 1024.0, 768.0, 2e-6),

@@ -32,7 +32,8 @@ def test_no_jax_or_reference_imports(path):
 def test_import_leaves_jax_unloaded():
     code = ("import sys, repro_torch, repro_torch.serve, "
             "repro_torch.launch.serve, repro_torch.models.convert, "
-            "repro_torch.core, repro_torch.kernels.calibrate, "
+            "repro_torch.core, repro_torch.core.api, repro_torch.graphs, "
+            "repro_torch.launch.optimize, repro_torch.kernels.calibrate, "
             "repro_torch.sharding.mcm_planner; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
