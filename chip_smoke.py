@@ -46,6 +46,22 @@ Phases, each printing its lines; any failure exits nonzero:
      call, the device's busy share) and the AUTO_POPULATION_THRESHOLD
      crossover, torch on the card vs numpy at P = 1..4096. No kernel
      of the port lies on this path: every launch count stays 0.
+  7. sweeps: the paper's batched solvers (repro_torch.core.sweep) at the
+     paper's sizes: Fig. 9/10's GA leg (four workloads on 4x4, 8x8 and
+     16x16 type-A HBM, both objectives) through solve_grid on the card,
+     every fitness call counted on cuda and every record held to the
+     JAX suite's GA invariants (on real layer dims: shares on the unit
+     lattice of the repaired uniform partition); fig_hetero's island batch (2 groups of
+     3), one island of each group solved alone and equal bit for bit,
+     beside the numpy engine's time, and one island solve profiled (its
+     host syncs, counted by torch's sync debug mode, one per chunk);
+     the device GA's quality within 1% of the python engine (median of
+     5 seeds); MIQP through solve_grid equal to solo solves; Fig. 11's
+     pipelining (64 points, 16 groups) through pipeline_sweep: the SGS
+     kernel launches once per group, its schedules bit-identical to its
+     plain version, the host frontier and list_schedule, and it is timed
+     at the largest group beside its bound. The TPU kernels' counts stay
+     0.
 Then one JSON line of kernel numbers, and as the last line
 {"ok": true, "device": {...}}. Without a card it exits 1 and prints no
 result. Imports nothing of JAX.
@@ -74,6 +90,10 @@ SSD_SRC = "src/repro_torch/kernels/csrc/ssm_scan.cu"
 SSD_TPU = "src/repro/kernels/ssm_scan/kernel.py:24"
 GEMM_SRC = "src/repro_torch/kernels/csrc/gemm.cu"
 GEMM_TPU = "src/repro/kernels/gemm/kernel.py:18"
+SGS_SRC = "src/repro_torch/kernels/csrc/sgs_batch.cu"
+SGS_REPLACES = ("src/repro/core/pipelining_jax.py:62 sgs_instance "
+                "(lax.fori_loop; no Pallas kernel)")
+TPU_KERNELS = ("flash_attention", "wkv6", "ssm_scan", "gemm")
 H100_BF16_FLOPS = 989e12     # dense tensor-core peak, SXM data sheet
 H100_F32_FLOPS = 67e12       # f32 on the CUDA cores, SXM data sheet
 H100_BYTES_PER_S = 3.35e12   # HBM3 peak
@@ -215,9 +235,9 @@ GEMM_TOL = {torch.float32: dict(rtol=2e-5, atol=1.6e-4),
 # 8-deep K tile moves outputs by ~0.3 there and fails.
 IN_PROJ_BF16_RTOL = 2 ** -7
 # Launches of one full profile_kernels() pass: samples x (1 warm-up + 3
-# timed calls).
+# timed calls); the pipeliner's SGS kernel is not on it.
 CALIB_LAUNCHES = {"gemm": 12, "flash_attention": 8, "wkv6": 8,
-                  "ssm_scan": 8}
+                  "ssm_scan": 8, "sgs_batch": 0}
 SERVED = ("smollm-360m", "rwkv6-3b", "zamba2-2.7b")
 
 
@@ -838,9 +858,10 @@ def _wrappers():
     from repro_torch.kernels.flash_attention.kernel import flash_attention
     from repro_torch.kernels.gemm.kernel import matmul
     from repro_torch.kernels.rwkv6.kernel import wkv6
+    from repro_torch.kernels.sgs.kernel import sgs_batch
     from repro_torch.kernels.ssm_scan.kernel import ssm_scan
     return {"flash_attention": flash_attention, "wkv6": wkv6,
-            "ssm_scan": ssm_scan, "gemm": matmul}
+            "ssm_scan": ssm_scan, "gemm": matmul, "sgs_batch": sgs_batch}
 
 
 def reset_launch_counts():
@@ -1413,6 +1434,411 @@ def _host_time(fn):
     return time.perf_counter() - t0
 
 
+# Phase 7: the paper's batched solvers on the card, at the paper's sizes
+# (the four workloads at batch 1, not cut). The GA's device engine is
+# held to the JAX suite's invariants (tests/test_core_ga_engines.py) and,
+# against the python engine on numpy, to solution quality within
+# QUALITY_RTOL (median over 5 seeds: the two draw from different
+# generators, DESIGN.md §10); an island solved alone must equal its
+# batched record bit for bit (the sweep cache's invariant). The SGS
+# kernel's schedules are bit-identical to every other engine's.
+SWEEP_WORKLOADS = ("alexnet", "vit", "hydranet", "vision_mamba")
+SWEEP_GRIDS = (4, 8, 16)
+PIPE_BATCHES = (2, 4, 8, 16)
+QUALITY_RTOL = 0.01
+QUALITY_SEEDS = range(5)
+
+
+def ga_invariants(task, hw, cfg, r):
+    """tests/test_core_ga_engines.py's invariants of one GA record, on a
+    real workload: exact per-op sums; each share on the unit lattice of
+    the repaired uniform partition (multiples of R or C on the JAX
+    suite's divisible tasks; a layer dim that is no multiple leaves its
+    residue in one share, where every engine keeps it) and inside the
+    Sec-6.2 window (or between it and that share's start); collectors
+    in range; a best objective that never regresses."""
+    from repro_torch.core.workload import (clamp_partition_to_domain,
+                                           partition_domain,
+                                           uniform_partition)
+    part = r.partition
+    part.validate(task)
+    lo, hi = partition_domain(task, hw.X, hw.Y, hw.R, hw.C, cfg.slack)
+    base = clamp_partition_to_domain(uniform_partition(task, hw.X, hw.Y),
+                                     task, hw.X, hw.Y, hw.R, hw.C,
+                                     cfg.slack)
+    for got, start, unit, k in ((part.Px, base.Px, hw.R, 0),
+                                (part.Py, base.Py, hw.C, 1)):
+        assert ((got - start) % unit == 0).all()
+        assert (got >= np.minimum(lo[:, k:k + 1] * unit, start)).all()
+        assert (got <= np.maximum(hi[:, k:k + 1] * unit, start)).all()
+    assert (part.collectors >= 0).all() and (part.collectors < hw.Y).all()
+    assert (np.diff(r.history) <= 1e-18).all()
+    assert math.isclose(r.objective, r.history[-1], rel_tol=1e-12)
+    assert r.evaluations == len(r.history) * cfg.population
+
+
+def same_ga(a, b):
+    return (a.objective == b.objective
+            and np.array_equal(a.history, b.history)
+            and np.array_equal(a.partition.Px, b.partition.Px)
+            and np.array_equal(a.partition.Py, b.partition.Py)
+            and np.array_equal(a.partition.collectors, b.partition.collectors)
+            and np.array_equal(a.redist_mask, b.redist_mask)
+            and a.evaluations == b.evaluations)
+
+
+def generation_steps(recs, cfg):
+    """Generation steps one island group runs: whole chunks of
+    min(patience, generations) until its longest island stops."""
+    chunk = max(1, min(cfg.patience, cfg.generations))
+    longest = max(len(r.history) for r in recs)
+    return min(cfg.generations, -(-longest // chunk) * chunk)
+
+
+def hetero_grids():
+    """benchmarks/fig_hetero.py's class-count axis on a 4x4 type-A HBM
+    package: homogeneous, 2-class (fast/slow half rows), 4-class."""
+    import dataclasses
+
+    from repro_torch.core.hw import ChipletClass, make_hw
+    fast = ChipletClass("fast", freq_hz=1.5e9, bw_nop=120e9)
+    base = ChipletClass("base")
+    mid = ChipletClass("mid", freq_hz=0.75e9, bw_nop=45e9)
+    slow = ChipletClass("slow", freq_hz=0.5e9, bw_nop=30e9, mem_scale=0.5)
+    hw = make_hw("A", 4, "hbm")
+    return {
+        "homogeneous": hw,
+        "two_class": dataclasses.replace(
+            hw, chiplet_classes=(fast, slow),
+            class_assignment=(0,) * 8 + (1,) * 8),
+        "four_class": dataclasses.replace(
+            hw, chiplet_classes=(fast, base, mid, slow),
+            class_assignment=(0,) * 4 + (1,) * 4 + (2,) * 4 + (3,) * 4),
+    }
+
+
+def ga_profile(fn, generations, chunks):
+    """One GA solve under torch.profiler: kernels per generation, the
+    host's synchronising calls per chunk, the device's busy share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    kernels = 0
+    copies, waits = collections.Counter(), collections.Counter()
+    busy_us = 0.0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            busy_us += e.self_device_time_total
+            if e.name.startswith(("Memcpy", "Memset")):
+                copies[e.name.split()[0] + " " + e.name.split()[1]] += 1
+            else:
+                kernels += 1
+        elif e.name in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+                        "cudaMemcpy", "cudaEventSynchronize"):
+            waits[e.name] += 1
+    return {"wall_s": wall_us / 1e6, "generation_steps": generations,
+            "chunks": chunks, "kernels_per_generation": kernels / generations,
+            "copies": dict(copies),
+            "host_wait_calls (one cudaDeviceSynchronize is the profile's)":
+                dict(waits),
+            "device_busy_s": busy_us / 1e6,
+            "device_busy_share": busy_us / wall_us}
+
+
+def counted_syncs(fn):
+    """Synchronising CUDA calls of ``fn`` as torch's sync debug mode
+    reports them."""
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sum("synchronizing CUDA operation" in str(w.message)
+               for w in caught)
+
+
+def phase_sweeps():
+    """Phase 7: the paper's batched solvers through repro_torch.core.sweep
+    on the card: (a) Fig. 9/10's GA leg, (b) fig_hetero's island batch,
+    (c) the GA's quality against the python engine, (d) MIQP through
+    solve_grid, (e) Fig. 11's pipelining through pipeline_sweep and the
+    SGS kernel. No TPU kernel lies on this path: their counts stay 0;
+    the SGS kernel launches once per (n_ops, batch) group of (e)."""
+    from repro_torch.core import evaluator_torch, ga_torch, miqp_lattice
+    from repro_torch.core import sweep
+    from repro_torch.core.evaluator import EvalOptions
+    from repro_torch.core.ga import GAConfig, run_ga
+    from repro_torch.core.hw import make_hw
+    from repro_torch.core.miqp import MIQPConfig, run_miqp
+    from repro_torch.core.pipelining import (_frontier_schedule_host,
+                                             build_jobs, chain_priorities,
+                                             list_schedule)
+    from repro_torch.core.pipelining_torch import schedule_batch
+    from repro_torch.graphs import WORKLOADS
+    from repro_torch.kernels.sgs.kernel import sgs_batch, step_probe
+    from repro_torch.kernels.sgs.ref import sgs_batch_ref
+
+    t_phase = time.perf_counter()
+    reset_launch_counts()
+    sweep.clear_cache()
+    calls = evaluator_torch.grid_evaluate.calls
+    tasks = {w: WORKLOADS[w](batch=1) for w in SWEEP_WORKLOADS}
+    ga_opts = EvalOptions(redistribution=True, async_exec=True)
+    log("sweeps", "workloads " + json.dumps(
+        {w: len(t) for w, t in tasks.items()}) + " GEMMs")
+
+    # (a) Fig. 9/10's GA leg: every workload on 4x4, 8x8 and 16x16 type-A
+    # HBM with diagonal links, both objectives, one island per shape group.
+    cfg = GAConfig(generations=60, population=64)
+    grid_pts = sweep.grid(g=SWEEP_GRIDS, w=SWEEP_WORKLOADS)
+    hws = {g: make_hw("A", g, "hbm") for g in SWEEP_GRIDS}
+    base = sweep.eval_sweep([sweep.EvalPoint(tasks[p["w"]], hws[p["g"]])
+                             for p in grid_pts])
+    pts = [sweep.EvalPoint(tasks[p["w"]],
+                           hws[p["g"]].replace(diagonal_links=True), ga_opts)
+           for p in grid_pts]
+    for objective in ("latency", "edp"):
+        calls.clear()
+        t0 = time.perf_counter()
+        recs = sweep.solve_grid(pts, objective, cfg, backend="torch")
+        solve_s = time.perf_counter() - t0
+        steps = sum(generation_steps([r], cfg) for r in recs)
+        assert dict(calls) == {"cuda": steps}, (dict(calls), steps)
+        for pt, r in zip(pts, recs):
+            ga_invariants(pt.task, pt.hw, cfg, r)
+        scored = sweep.eval_sweep(
+            [sweep.EvalPoint(pt.task, pt.hw, ga_opts, partition=r.partition,
+                             redist_mask=r.redist_mask)
+             for pt, r in zip(pts, recs)])
+        speedups = {}
+        for p, r, ls, sc in zip(grid_pts, recs, base, scored):
+            assert math.isclose(sc[objective], r.objective, rel_tol=1e-9)
+            speedups[f"{p['g']}x{p['g']}/{p['w']}"] = ls[objective] / \
+                sc[objective]
+        log("sweeps", json.dumps({
+            "leg": "fig9_10_ga", "objective": objective,
+            "points": len(pts), "solve_grid_s": solve_s,
+            "fitness_calls": dict(calls),
+            "generations": [len(r.history) for r in recs],
+            "speedup_vs_ls": speedups}))
+
+    # (b) fig_hetero's GA leg: AlexNet and ViT x homogeneous, 2-class and
+    # 4-class 4x4 grids, EDP: 2 groups of 3 islands. One island of each
+    # group solved alone must equal its batched record bit for bit.
+    cfg_h = GAConfig(population=64, generations=60, seed=0)
+    grids = hetero_grids()
+    het = [sweep.EvalPoint(tasks[w], hw, ga_opts)
+           for w in ("alexnet", "vit") for hw in grids.values()]
+    calls.clear()
+    t0 = time.perf_counter()
+    recs = sweep.solve_grid(het, "edp", cfg_h, backend="torch", cache=False)
+    torch_s = time.perf_counter() - t0
+    for pt, r in zip(het, recs):
+        ga_invariants(pt.task, pt.hw, cfg_h, r)
+    steps = sum(generation_steps(recs[i:i + 3], cfg_h) for i in (0, 3))
+    assert dict(calls) == {"cuda": steps}, (dict(calls), steps)
+    solo_equal = {}
+    for i in (1, 5):      # alexnet two_class, vit four_class
+        solo = sweep.solve_grid([het[i]], "edp", cfg_h, backend="torch",
+                                cache=False)[0]
+        solo_equal[het[i].task.name + "/" + list(grids)[i % 3]] = \
+            same_ga(solo, recs[i])
+    assert all(solo_equal.values()), solo_equal
+    t0 = time.perf_counter()
+    ref = sweep.solve_grid(het, "edp", cfg_h, backend="numpy", cache=False)
+    numpy_s = time.perf_counter() - t0
+    log("sweeps", json.dumps({
+        "leg": "fig_hetero_ga", "islands_per_call": [3, 3],
+        "solve_grid_s_torch_cuda": torch_s,
+        "solve_grid_s_numpy_vectorized": numpy_s,
+        "edp_torch_cuda": [r.objective for r in recs],
+        "edp_numpy_vectorized": [r.objective for r in ref],
+        "generations": [len(r.history) for r in recs],
+        "solo_equals_batched": solo_equal}))
+    vit_pt = het[3]
+    one = lambda: ga_torch.run_ga_torch(  # noqa: E731
+        vit_pt.task, vit_pt.hw, "edp", ga_opts, cfg_h)
+    r = one()
+    steps = generation_steps([r], cfg_h)
+    chunks = -(-steps // max(1, min(cfg_h.patience, cfg_h.generations)))
+    syncs = counted_syncs(one)
+    prof = ga_profile(one, steps, chunks)
+    prof.update({"sync_debug_mode_syncs": syncs,
+                 "generations_evaluated": len(r.history)})
+    log("sweeps", "one ViT island solve on the card, profiled: "
+        + json.dumps(prof))
+    assert syncs == chunks, (syncs, chunks)
+
+    # (c) Quality on the card: the JAX suite's test at its sizes.
+    hw_q = make_hw("A", 4, "hbm", diagonal_links=True)
+    kw = dict(generations=30, population=32, patience=30)
+    quality = {}
+    for w in ("alexnet", "vit"):
+        t0 = time.perf_counter()
+        card = [run_ga(tasks[w], hw_q, "latency", ga_opts,
+                       GAConfig(seed=s, engine="vectorized",
+                                backend="torch", **kw)).objective
+                for s in QUALITY_SEEDS]
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        py = [run_ga(tasks[w], hw_q, "latency", ga_opts,
+                     GAConfig(seed=s, **kw)).objective
+              for s in QUALITY_SEEDS]
+        py_s = time.perf_counter() - t0
+        rel = statistics.median(card) / statistics.median(py) - 1.0
+        quality[w] = {"median_torch_cuda": statistics.median(card),
+                      "median_python_numpy": statistics.median(py),
+                      "rel": rel, "torch_cuda_s": card_s,
+                      "python_numpy_s": py_s}
+        assert abs(rel) <= QUALITY_RTOL, (w, quality[w])
+    log("sweeps", "quality " + json.dumps(quality))
+
+    # (d) MIQP through solve_grid: the four workloads on 4x4 type A,
+    # latency; each record equals a solo run_miqp of its point.
+    mopts = EvalOptions(redistribution=True, async_exec=False)
+    hw_m = make_hw("A", 4, "hbm", diagonal_links=True)
+    mpts = [sweep.EvalPoint(tasks[w], hw_m, mopts) for w in SWEEP_WORKLOADS]
+    calls.clear()
+    miqp_lattice.solve_lattice_batch.score_calls = 0
+    t0 = time.perf_counter()
+    mrecs = sweep.solve_grid(mpts, "latency", MIQPConfig(), backend="torch",
+                             method="miqp")
+    miqp_s = time.perf_counter() - t0
+    scored = miqp_lattice.solve_lattice_batch.score_calls
+    assert scored > 0 and dict(calls) == {"cuda": scored}, (scored, calls)
+    for pt, rec in zip(mpts, mrecs):
+        solo = run_miqp(pt.task, pt.hw, "latency", mopts, MIQPConfig())
+        assert solo.objective == rec.objective, pt.task.name
+        for f in ("Px", "Py", "collectors"):
+            assert np.array_equal(getattr(solo.partition, f),
+                                  getattr(rec.partition, f)), pt.task.name
+    log("sweeps", json.dumps({
+        "leg": "miqp_solve_grid", "solve_grid_s": miqp_s,
+        "scoring_calls": scored,
+        "latency_us": {pt.task.name: r.objective * 1e6
+                       for pt, r in zip(mpts, mrecs)},
+        "status": [r.milp_status for r in mrecs]}))
+
+    # (e) Fig. 11's pipelining: the LS-baseline segments of the four
+    # workloads on 4x4 HBM types A-D at batches 2-16, 16 groups of 4.
+    types = ("A", "B", "C", "D")
+    ls = sweep.eval_sweep([sweep.EvalPoint(tasks[w], make_hw(t, 4, "hbm"))
+                           for w in SWEEP_WORKLOADS for t in types])
+    segs = [[(f"op{i}", float(a), float(b), float(c))
+             for i, (a, b, c) in enumerate(zip(r["t_in"], r["t_comp"],
+                                               r["t_out"]))]
+            for r in ls]
+    ppts = [sweep.PipelinePoint(sg, b) for sg in segs for b in PIPE_BATCHES]
+    counts = launch_counts()
+    assert not any(counts[k] for k in TPU_KERNELS), counts
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    precs = sweep.pipeline_sweep(ppts, backend="torch")
+    pipe_s = time.perf_counter() - t0
+    counts = launch_counts()
+    n_groups = len(SWEEP_WORKLOADS) * len(PIPE_BATCHES)
+    assert counts["sgs_batch"] == n_groups, (counts, n_groups)
+    assert not any(counts[k] for k in TPU_KERNELS), counts
+    log("sweeps", json.dumps({
+        "leg": "pipeline_sweep", "points": len(ppts), "groups": n_groups,
+        "sgs_launches": counts["sgs_batch"], "pipeline_sweep_s": pipe_s,
+        "speedup": {f"{w}/{t}/b{b}": precs[(i * 4 + j) * 4 + k].speedup
+                    for i, w in enumerate(SWEEP_WORKLOADS)
+                    for j, t in enumerate(types)
+                    for k, b in enumerate(PIPE_BATCHES)}}))
+    # Every group again, kernel against the plain version on the card
+    # and the host frontier per point; one group against list_schedule.
+    for i, w in enumerate(SWEEP_WORKLOADS):
+        grp = slice(i * len(types), (i + 1) * len(types))
+        durs = np.stack([np.maximum(np.array([s[1:] for s in sg]), 0.0)
+                         for sg in segs[grp]])
+        for b in PIPE_BATCHES:
+            out = schedule_batch(durs, b)
+            dur = torch.from_numpy(durs.reshape(len(types), -1)).cuda()
+            prio = torch.from_numpy(np.stack(
+                [chain_priorities(d) for d in durs.reshape(len(types), -1)]
+            )).cuda()
+            ms_ref, st_ref = sgs_batch_ref(dur, prio, b)
+            assert np.array_equal(out["makespan"], ms_ref.cpu().numpy())
+            assert np.array_equal(out["starts"], st_ref.cpu().numpy())
+            for g in range(len(types)):
+                d = durs[g].reshape(-1)
+                ms_h, st_h = _frontier_schedule_host(d, chain_priorities(d),
+                                                     b)
+                assert out["makespan"][g] == ms_h, (w, b, g)
+                assert np.array_equal(out["starts"][g], st_h), (w, b, g)
+                pr = precs[(i * len(types) + g) * len(PIPE_BATCHES)
+                           + PIPE_BATCHES.index(b)]
+                assert pr.pipelined == ms_h and pr.batch == b
+    serial_w, serial_b = "vit", 16
+    i = SWEEP_WORKLOADS.index(serial_w)
+    for g in range(len(types)):
+        sg = segs[i * len(types) + g]
+        ms_s, starts = list_schedule(build_jobs(sg, serial_b))
+        L = 3 * len(sg)
+        st_s = np.array([[starts[s * L + p] for p in range(L)]
+                         for s in range(serial_b)])
+        out = schedule_batch(np.array([s[1:] for s in sg])[None], serial_b)
+        assert out["makespan"][0] == ms_s
+        assert np.array_equal(out["starts"][0], st_s)
+    log("sweeps", f"SGS schedules bit-identical: kernel vs plain on the "
+        f"card and vs the host frontier at all {n_groups} groups, vs "
+        f"list_schedule at {serial_w} batch {serial_b} ({len(types)} points)")
+
+    # The largest group (ViT, batch 16) timed: the kernel (one call and
+    # 20 back to back), the plain version on the card, the host frontier;
+    # the bound is the dependent steps at the measured latency of one
+    # empty warp-reduction step.
+    sg_vit = segs[i * len(types):(i + 1) * len(types)]
+    durs = np.stack([np.maximum(np.array([s[1:] for s in sg]), 0.0)
+                     .reshape(-1) for sg in sg_vit])
+    dur = torch.from_numpy(durs).cuda()
+    prio = torch.from_numpy(np.stack([chain_priorities(d) for d in durs])
+                            ).cuda()
+    G, L = dur.shape
+    B = serial_b
+    ms_k, st_k = sgs_batch(dur, prio, B)
+    ms_p, st_p = sgs_batch_ref(dur, prio, B)
+    max_abs_err = max(float((ms_k - ms_p).abs().max()),
+                      float((st_k - st_p).abs().max()))
+    assert max_abs_err == 0.0, max_abs_err
+    kernel_ms = time_ms(lambda: sgs_batch(dur, prio, B))
+    kernel_burst = burst_ms(lambda: sgs_batch(dur, prio, B))
+    plain_ms = time_ms(lambda: sgs_batch_ref(dur, prio, B), reps=3,
+                       warmup=1)
+    host_ms = 1e3 * statistics.median(
+        _host_time(lambda: [_frontier_schedule_host(d, chain_priorities(d),
+                                                    B) for d in durs])
+        for _ in range(3))
+    steps = B * L
+    probe_ms = burst_ms(lambda: step_probe(steps, dur.device))
+    nbytes = 8 * (2 * G * L + G + G * B * L)
+    bytes_ms = 1e3 * nbytes / H100_BYTES_PER_S
+    row = {"shape": {"G": G, "batch": B, "L": L, "steps": steps},
+           "kernel_ms": kernel_ms, "kernel_burst_ms": kernel_burst,
+           "plain_ms": plain_ms, "host_numpy_frontier_ms": host_ms,
+           "warp_step_us": 1e3 * probe_ms / steps,
+           "bound_ms": max(probe_ms, bytes_ms), "bytes_bound_ms": bytes_ms,
+           "bound_by": "operations",
+           "bound_note": "dependent SGS steps x the measured latency of "
+                         "one empty warp-reduction step",
+           "max_abs_err": max_abs_err, "library_ms": None}
+    log("sweeps", "sgs_batch vit batch 16 " + json.dumps(row))
+    assert not any(launch_counts()[k] for k in TPU_KERNELS)
+    log("sweeps", f"phase 7 in {time.perf_counter() - t_phase:.1f}s")
+    return {"sgs_batch": counts["sgs_batch"],
+            **{k: counts[k] for k in TPU_KERNELS}}, row
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -1427,8 +1853,10 @@ def main():
     for phase in (phase_calibrate_plan, phase_serve, phase_serve_rwkv6,
                   phase_serve_zamba2, phase_optimize):
         launches.update(phase())
-    log("serve", f"launches over the calibration pass and the three serve "
-        f"paths: {dict(launches)}")
+    counts, rows["sgs_batch"] = phase_sweeps()
+    launches.update(counts)
+    log("sweeps", f"launches over the calibration pass, the three serve "
+        f"paths and the pipelining sweep: {dict(launches)}")
     kernels = [{
         "name": name, "route": "cuda", "source": src, "replaces": tpu,
         "launches": launches[name],
@@ -1442,7 +1870,8 @@ def main():
         for name, src, tpu in (("flash_attention", FLASH_SRC, FLASH_TPU),
                                ("wkv6", WKV6_SRC, WKV6_TPU),
                                ("ssm_scan", SSD_SRC, SSD_TPU),
-                               ("gemm", GEMM_SRC, GEMM_TPU))]
+                               ("gemm", GEMM_SRC, GEMM_TPU),
+                               ("sgs_batch", SGS_SRC, SGS_REPLACES))]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

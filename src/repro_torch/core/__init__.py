@@ -11,12 +11,16 @@ package's numpy modules, with a float64 torch evaluator for the card:
     (Sec. 5.2/5.3), the closed-form congestion regime pick; numpy
     reference backend plus a torch backend on the card
     (:mod:`.evaluator_torch`).
-  * :mod:`.sweep` — batched evaluation sweeps with result caching.
+  * :mod:`.sweep` — batched sweeps with result caching and checkpointed
+    resume: evaluation, GA islands and MIQP lattice points
+    (``solve_grid``), pipelining (``pipeline_sweep``).
   * :mod:`.ga` / :mod:`.miqp` — the two solvers (Sec. 6.2/6.3): the GA's
-    reference engine, the HiGHS MILP, and :mod:`.miqp_lattice`, the
+    python and vectorized numpy engines and its device engine
+    (:mod:`.ga_torch`), the HiGHS MILP, and :mod:`.miqp_lattice`, the
     batched lattice-enumeration MIQP engine scored on the card;
     :mod:`.simba` — the heuristic baseline.
-  * :mod:`.pipelining` — RCPSP cross-sample pipelining (Sec. 5.4).
+  * :mod:`.pipelining` — RCPSP cross-sample pipelining (Sec. 5.4), with
+    the batched SGS on the card (:mod:`.pipelining_torch`).
   * :mod:`.api` — one-call front door, :func:`optimize`.
 """
 from .api import (ScheduleResult, baseline_result, optimize,  # noqa: F401
@@ -32,7 +36,8 @@ from .miqp import (MIQPConfig, MIQPResult, resolve_auto_engine,  # noqa: F401
 from .pipelining import (PIPELINE_ENGINES, PipelineConfig,  # noqa: F401
                          PipelineResult, pipeline_batch,
                          resolve_auto_pipeline_engine)
-from .sweep import EvalPoint, eval_sweep  # noqa: F401
+from .sweep import (EvalPoint, PipelinePoint, eval_sweep,  # noqa: F401
+                    pipeline_sweep, solve_grid)
 from .workload import (GemmOp, Partition, Task,  # noqa: F401
                        clamp_partition_to_domain, partition_domain,
                        uniform_partition)

@@ -203,7 +203,9 @@ def optimize(
     agree to float64 round-off (rtol 1e-9; identical GA trajectories
     under a fixed seed on CPU). ``None`` means numpy, except the ``ga``
     branch which follows ``ga_config.backend`` end-to-end (fitness and
-    scoring always use the same engine). ``"auto"`` resolves by the GA
+    scoring always use the same engine); ``ga_config.engine="vectorized"``
+    on the torch backend runs the GA's device engine (:mod:`.ga_torch`),
+    the whole search on the card. ``"auto"`` resolves by the GA
     population size (torch at ≥1024, DESIGN.md §8).
     ``miqp_config.engine`` likewise selects the MIQP solver engine
     (DESIGN.md §12): ``"milp"`` = the HiGHS program, ``"lattice"`` (the

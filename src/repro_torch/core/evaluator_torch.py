@@ -15,8 +15,12 @@ Structure:
     :func:`to_device` moves to the device once;
   * :func:`grid_evaluate` takes constants stacked on a leading grid axis
     ``G`` and genomes ``[G, P, ...]`` with an explicit population axis
-    ``P``; :func:`batch_evaluate` is its ``G = 1`` case. Plain eager
-    torch: no ``vmap``, no ``torch.compile``;
+    ``P``; :func:`batch_evaluate` is its ``G = 1`` case. Both copy
+    numpy genomes in and results out; fused callers that keep their
+    genomes on the device (the GA's device engine, :mod:`.ga_torch`)
+    call :func:`evaluate_tensors` instead, which takes and returns
+    device tensors. Plain eager torch: no ``vmap``, no
+    ``torch.compile``;
   * float64 throughout: every tensor is created as ``torch.float64``
     (torch's default dtype is float32, and cycle counts overflow float32
     mantissas).
@@ -26,8 +30,9 @@ Only the closed-form congestion regime (the JAX package's
 port's netsim (ROADMAP.md, A.3). ``device=None`` means the card and
 raises without one (:func:`repro_torch.device.resolve_device`).
 
-``grid_evaluate.calls`` counts the calls by device type (``"cuda"``,
-``"cpu"``), as the kernels' wrappers count their launches.
+``grid_evaluate.calls`` counts every evaluation by device type
+(``"cuda"``, ``"cpu"``), numpy-in or tensor-in, as the kernels' wrappers
+count their launches.
 """
 from __future__ import annotations
 
@@ -41,7 +46,7 @@ from ..device import resolve_device
 from .evaluator import EvalOptions
 
 __all__ = ["EvalConsts", "batch_evaluate", "consts_from_evaluator",
-           "grid_evaluate", "to_device"]
+           "evaluate_tensors", "grid_evaluate", "to_device", "upload"]
 
 #: dict of per-(Task, HWConfig) constants: per-op [n], per-chiplet
 #: [X, Y], per-row/cross-row [X] / [X-1], per-entrance [E...] arrays and
@@ -78,12 +83,25 @@ def consts_from_evaluator(ev) -> EvalConsts:
     }
 
 
+def upload(a, dev: torch.device) -> torch.Tensor:
+    """One numpy array (or tensor) on ``dev``. To a card it goes through
+    pinned memory without blocking the host, so a caller that uploads
+    and then launches syncs nowhere; a tensor already there is
+    returned as it is."""
+    if isinstance(a, torch.Tensor):
+        return a.to(dev)
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if dev.type == "cuda":
+        return t.pin_memory().to(dev, non_blocking=True)
+    return t.to(dev)
+
+
 def to_device(consts: EvalConsts, device=None) -> dict[str, torch.Tensor]:
     """Move a constant bundle (single or grid-stacked) to ``device`` once,
     so repeated calls skip the host-to-device copies (no-op on tensors
     already there)."""
     dev = resolve_device(device)
-    return {k: torch.as_tensor(v, device=dev) for k, v in consts.items()}
+    return {k: upload(v, dev) for k, v in consts.items()}
 
 
 def _evaluate(c: dict[str, torch.Tensor], Px, Py, collectors, redist, *,
@@ -244,6 +262,24 @@ def _evaluate(c: dict[str, torch.Tensor], Px, Py, collectors, redist, *,
     }
 
 
+def evaluate_tensors(c: dict[str, torch.Tensor], opts: EvalOptions,
+                     Px, Py, collectors, redist
+                     ) -> dict[str, torch.Tensor]:
+    """Grid-batched evaluation on device tensors, for callers that keep
+    their genomes on the device: constants from :func:`to_device`
+    (``[G, ...]``), float64 genomes ``Px [G, P, n, X]``, ``Py [G, P, n,
+    Y]``, ``collectors`` and ``redist`` ``[G, P, n]`` on the constants'
+    device. Returns float64 tensors there (``[G, P]`` and ``[G, P,
+    n]``); copies nothing and never waits for the device. Counted in
+    ``grid_evaluate.calls``."""
+    grid_evaluate.calls[Px.device.type] += 1
+    with torch.no_grad():
+        return _evaluate(c, Px, Py, collectors, redist,
+                         redistribution=bool(opts.redistribution),
+                         async_exec=bool(opts.async_exec),
+                         energy_mode=opts.energy_mode)
+
+
 def grid_evaluate(consts_stack: EvalConsts, opts: EvalOptions,
                   Px, Py, collectors, redist, device=None
                   ) -> dict[str, np.ndarray]:
@@ -252,19 +288,13 @@ def grid_evaluate(consts_stack: EvalConsts, opts: EvalOptions,
     arrays with the numpy backend's keys, shaped ``[G, P]`` and
     ``[G, P, n]``."""
     dev = resolve_device(device)
-    grid_evaluate.calls[dev.type] += 1
     c = to_device(consts_stack, dev)
 
     def genome(a):
-        return torch.as_tensor(np.ascontiguousarray(a, dtype=np.float64),
-                               device=dev)
+        return upload(np.asarray(a, dtype=np.float64), dev)
 
-    with torch.no_grad():
-        out = _evaluate(c, genome(Px), genome(Py), genome(collectors),
-                        genome(redist),
-                        redistribution=bool(opts.redistribution),
-                        async_exec=bool(opts.async_exec),
-                        energy_mode=opts.energy_mode)
+    out = evaluate_tensors(c, opts, genome(Px), genome(Py),
+                           genome(collectors), genome(redist))
     return {k: v.cpu().numpy() for k, v in out.items()}
 
 

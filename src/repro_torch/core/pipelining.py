@@ -10,14 +10,15 @@ Three engines (DESIGN.md §13), selected by :class:`PipelineConfig`:
 
   * ``engine="python"`` — the serial critical-path-first priority list
     scheduler (heapq SGS); behavioral reference.
-  * ``engine="vectorized"`` (the ``"auto"`` default) — the frontier
-    SGS: the regular job structure (every sample emits the same (in,
-    comp, out) chain) makes priorities a reversed cumulative sum and the
-    ready set a per-sample frontier. Exact — bit-identical
-    makespans/starts vs the python engine. The port runs it on the host
-    in numpy (the JAX package's parity reference); the batched torch
-    form of the JAX package's ``pipelining_jax`` comes with ROADMAP.md
-    A.2.
+  * ``engine="vectorized"`` (the ``"auto"`` default) — the batched SGS
+    of :mod:`.pipelining_torch`: the regular job structure (every sample
+    emits the same (in, comp, out) chain) makes priorities a reversed
+    cumulative sum and the ready set a per-sample frontier, so whole
+    (workload × batch × segment-variant) grids schedule through one call
+    per shape group (``backend="torch"``: a hand-written CUDA kernel on
+    the card, its plain PyTorch version on the CPU; ``backend="numpy"``
+    runs the same frontier loop on the host as the parity reference).
+    Exact — bit-identical makespans/starts vs the python engine.
   * ``engine="milp"`` — the paper's time-indexed RCPSP ILP via HiGHS
     (wall-clock budgeted). The bucket solution is re-simulated through
     the SGS so the reported (makespan, starts) is a *feasible*
@@ -63,14 +64,28 @@ def resolve_auto_pipeline_engine(engine: str) -> str:
 
 @dataclasses.dataclass(frozen=True)
 class PipelineConfig:
-    """Scheduler selection + MILP knobs (frozen, like
-    ``GAConfig``/``MIQPConfig``). The JAX package's ``backend`` and
-    ``devices`` fields select its batched device engine, which comes
-    with ROADMAP.md A.2."""
+    """Scheduler selection + MILP knobs (frozen → usable as a sweep-cache
+    key component, like ``GAConfig``/``MIQPConfig``).
+
+    ``backend`` applies to the vectorized engine only: ``"torch"`` runs
+    the batched SGS (:mod:`.pipelining_torch`) on ``device`` (``None``:
+    the card), ``"numpy"`` the host frontier loop (parity reference).
+    ``"auto"`` resolves to numpy for a solo :func:`pipeline_batch` call
+    (no device round trip) and to torch inside
+    :func:`.sweep.pipeline_sweep` (grid batching always wins) — both
+    produce bit-identical schedules, so the resolution is a pure
+    performance choice."""
 
     engine: str = "auto"       # python | vectorized | milp | auto
+    backend: str = "auto"      # numpy | torch | auto (vectorized engine)
     n_buckets: int = 64        # milp time-bucket count
     time_limit: float = 30.0   # milp wall-clock budget (seconds)
+    devices: str = "auto"      # grid-axis execution of batched schedules:
+                               # "single" | "auto" (the one card);
+                               # "sharded" raises (ROADMAP.md A.4).
+                               # Result-neutral — never part of a cache
+                               # fingerprint
+    device: str | None = None  # torch device (None: the card)
 
 
 @dataclasses.dataclass
@@ -225,12 +240,24 @@ def _frontier_schedule_host(dur_flat: np.ndarray, prio: np.ndarray,
     return float(free.max(initial=0.0)), starts
 
 
-def vectorized_schedule(segments, batch: int) -> tuple[float, np.ndarray]:
+def vectorized_schedule(segments, batch: int, backend: str = "numpy",
+                        device=None) -> tuple[float, np.ndarray]:
     """Vectorized list schedule for one (segments, batch) instance:
     ``(makespan, starts [batch, 3n])`` with ``starts[s, p]`` the start of
     sample ``s``'s p-th chain job (jid ``s*3n + p`` in
-    :func:`build_jobs` order)."""
+    :func:`build_jobs` order). ``backend="torch"`` is the ``G=1`` case
+    of :func:`.pipelining_torch.schedule_batch` on ``device`` — the same
+    program the sweep engine batches, so solo == batched exactly."""
     dur = _segment_durations(segments)
+    if backend == "torch":
+        from . import pipelining_torch
+
+        out = pipelining_torch.schedule_batch(dur.reshape(1, -1, 3), batch,
+                                              device=device)
+        return float(out["makespan"][0]), out["starts"][0]
+    if backend != "numpy":
+        raise ValueError(f"unknown backend {backend!r}; "
+                         f"one of ('numpy', 'torch')")
     return _frontier_schedule_host(dur, chain_priorities(dur), batch)
 
 
@@ -390,7 +417,9 @@ def pipeline_batch(segments, batch: int, use_milp: bool = False,
     """Schedule one (segments, batch) pipelining instance.
 
     ``config`` selects the engine (DESIGN.md §13); ``use_milp=True`` is
-    the legacy spelling of ``PipelineConfig(engine="milp")``."""
+    the legacy spelling of ``PipelineConfig(engine="milp")``. Batched
+    grids should go through :func:`.sweep.pipeline_sweep` instead — one
+    call per (n_ops, batch) shape group."""
     cfg = config or PipelineConfig()
     if use_milp:
         cfg = dataclasses.replace(cfg, engine="milp", time_limit=time_limit)
@@ -402,6 +431,8 @@ def pipeline_batch(segments, batch: int, use_milp: bool = False,
     elif engine == "python":
         ms, _ = list_schedule(build_jobs(segments, batch))
     else:
-        ms, _ = vectorized_schedule(segments, batch)
+        backend = "numpy" if cfg.backend == "auto" else cfg.backend
+        ms, _ = vectorized_schedule(segments, batch, backend=backend,
+                                    device=cfg.device)
     return PipelineResult(batch, sequential_makespan(segments, batch), ms,
                           engine=engine)

@@ -1,0 +1,78 @@
+"""torch backend for the RCPSP pipeliner — batched list scheduling
+(DESIGN.md §13). The counterpart of the JAX package's
+``core/pipelining_jax.py``.
+
+The cross-sample pipelining DAG of Sec. 5.4 is *regular*: every sample of
+a batch emits the same (in, comp, out) chain, so a whole instance is a
+dense ``[batch, n_ops, 3]`` duration tensor and the serial heapq SGS of
+:mod:`.pipelining` collapses into array form:
+
+  * **Priorities** — a chain job's only successor is the next chain job,
+    so the critical-path walk is a reversed cumulative sum, identical for
+    every sample (:func:`.pipelining.chain_priorities`; computed on the
+    host so every engine compares bit-identical floats on ties).
+  * **Ready set = per-sample frontier** — scheduling a job makes its
+    chain successor ready immediately, so the heap always holds exactly
+    one entry (the next unscheduled chain position) per unfinished
+    sample. The SGS step is therefore an ``argmax`` of priority over the
+    ``[batch]`` frontier (ties → smallest jid, the heap's tie-break),
+    dispatched onto its unit resource; ``batch × 3n`` such steps
+    schedule the whole instance.
+  * **Grids** — a leading grid axis batches every instance sharing
+    (n_ops, batch) (:func:`.sweep.pipeline_sweep` does the grouping) into
+    one call of :func:`repro_torch.kernels.sgs.ops.sgs_batch`: on the card
+    the hand-written kernel (one warp per grid point runs all its steps),
+    on the CPU its plain version. A solo call is the ``G = 1`` case, so
+    solo == batched exactly (the §9 cache invariant).
+
+Exactness: every arithmetic op (max, add) matches the serial engine bit
+for bit — the contract is *bit-identical* makespans and start times.
+``device=None`` means the card and raises without one.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..kernels.sgs import ops
+from .pipelining import chain_priorities
+
+__all__ = ["schedule_batch", "sgs_instance"]
+
+
+def _sgs(dur: np.ndarray, batch: int, dev: torch.device):
+    """``dur [G, L]`` (clamped) → device ``(makespan [G], starts [G,
+    batch, L])`` through the op, priorities from the host."""
+    prio = np.stack([chain_priorities(d) for d in dur])
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    return ops.sgs_batch(to(dur), to(prio), int(batch))
+
+
+def sgs_instance(dur, batch: int, device=None) -> tuple[float, np.ndarray]:
+    """One instance: ``dur [L]`` clamped chain durations of one sample →
+    ``(makespan, starts [batch, L])`` — the ``G = 1`` case of
+    :func:`schedule_batch` (``L == 0`` or ``batch == 0``: zeros)."""
+    dur = np.asarray(dur, dtype=np.float64).reshape(1, -1)
+    out = schedule_batch(dur.reshape(1, -1, 3), batch, device=device)
+    return float(out["makespan"][0]), out["starts"][0]
+
+
+def schedule_batch(segments_grid: np.ndarray, batch: int, device=None
+                   ) -> dict[str, np.ndarray]:
+    """Batched list scheduling: ``segments_grid [G, n, 3]`` per-op
+    (t_in, t_comp, t_out) durations for ``G`` same-shape grid points →
+    ``{"makespan": [G], "starts": [G, batch, 3n]}`` (``starts[g, s, p]``
+    = start of sample ``s``'s p-th chain job, jid ``s*3n + p`` in
+    :func:`.pipelining.build_jobs` order). One call of the batched SGS
+    on ``device`` covers the whole group."""
+    seg = np.asarray(segments_grid, dtype=np.float64)
+    G, n = seg.shape[0], seg.shape[1]
+    L = 3 * n
+    dur = np.maximum(seg.reshape(G, L) if L else np.zeros((G, 0)), 0.0)
+    dev = resolve_device(device)
+    if L == 0 or batch == 0:
+        return {"makespan": np.zeros(G), "starts": np.zeros((G, batch, L))}
+    makespan, starts = _sgs(dur, batch, dev)
+    return {"makespan": makespan.cpu().numpy(),
+            "starts": starts.cpu().numpy()}

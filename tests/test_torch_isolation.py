@@ -34,7 +34,9 @@ def test_import_leaves_jax_unloaded():
             "repro_torch.launch.serve, repro_torch.models.convert, "
             "repro_torch.core, repro_torch.core.api, repro_torch.graphs, "
             "repro_torch.launch.optimize, repro_torch.kernels.calibrate, "
-            "repro_torch.sharding.mcm_planner; "
+            "repro_torch.sharding.mcm_planner, repro_torch.core.ga_torch, "
+            "repro_torch.core.pipelining_torch, repro_torch.kernels.sgs, "
+            "repro_torch.kernels.sgs.ops; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

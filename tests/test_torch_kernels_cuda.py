@@ -6,7 +6,9 @@ state dim 16; the bf16 tensor-core paths of flash (every head-dim
 tiling, GQA, ragged lengths, rows that are not 16-byte aligned), of
 the GEMM (K tails and unaligned rows), and of the chunked SSD and WKV-6
 (every state and head dim, ragged lengths, initial states, strided
-views, vanishing decays, a head dim over two column tiles). (Every
+views, vanishing decays, a head dim over two column tiles); the batched
+SGS of the pipeliner, bit for bit against its plain version (random and
+tied durations, one job, one sample, batches over a warp). (Every
 kernel against its plain version at every variant, in both dtypes, is also
 ``chip_smoke.py``'s kernel phase.) The ``cuda``-marked tests
 need an NVIDIA Hopper card and nvcc and skip elsewhere. Imports no JAX,
@@ -26,6 +28,8 @@ from repro_torch.kernels.gemm.kernel import matmul
 from repro_torch.kernels.gemm.ref import matmul_ref
 from repro_torch.kernels.rwkv6.chunked import wkv6_chunked
 from repro_torch.kernels.rwkv6.kernel import wkv6
+from repro_torch.kernels.sgs.kernel import sgs_batch
+from repro_torch.kernels.sgs.ref import sgs_batch_ref
 from repro_torch.kernels.ssm_scan.chunked import ssm_scan_chunked
 from repro_torch.kernels.ssm_scan.kernel import ssm_scan
 
@@ -90,6 +94,19 @@ FLASH_BF16_CASES = {
 # reverse. (M, K, N).
 GEMM_BF16_RAGGED = [*itertools.permutations((33, 257, 65)),
                     (33, 256, 65), (257, 65, 256)]
+
+
+# The batched SGS: (G, batch, n_ops), durations rounded to integers
+# (ties among priorities) or not, share of zero durations.
+SGS_CASES = {
+    "one_job": ((1, 1, 1), False, 0.0),
+    "one_sample": ((3, 1, 5), False, 0.3),
+    "vit_b16": ((4, 16, 74), False, 0.0),
+    "ties": ((5, 6, 4), True, 0.3),
+    "all_tied": ((2, 8, 3), True, 1.0),
+    "batch_over_a_warp": ((2, 45, 6), False, 0.2),
+    "batch_two_warps_ties": ((3, 64, 2), True, 0.3),
+}
 
 
 @pytest.fixture
@@ -364,6 +381,53 @@ def test_gemm_kernel_rejects_bad_inputs(cuda):
         matmul(a, a.T)                    # a strided (16, 8) view
     with pytest.raises(ValueError, match="inner dims"):
         matmul(a, a)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SGS_CASES)
+def test_sgs_kernel_matches_plain_bitwise(cuda, case):
+    """Makespans and starts bit for bit: only float64 max and + touch
+    the times, in the same order (no tolerance)."""
+    import numpy as np
+    (G, B, n), ties, p_zero = SGS_CASES[case]
+    rng = np.random.default_rng(len(case))
+    dur = np.where(rng.random((G, 3 * n)) < p_zero, 0.0,
+                   rng.uniform(0.0, 5.0, (G, 3 * n)))
+    if ties:
+        dur = np.round(dur)
+    prio = np.cumsum(dur[:, ::-1], axis=1)[:, ::-1].copy()
+    d = torch.from_numpy(dur).to(cuda)
+    p = torch.from_numpy(prio).to(cuda)
+    before = sgs_batch.launches
+    ms, st = sgs_batch(d, p, B)
+    assert sgs_batch.launches == before + 1
+    torch.cuda.synchronize()
+    ms_ref, st_ref = sgs_batch_ref(d, p, B)
+    assert torch.equal(ms, ms_ref)
+    assert torch.equal(st, st_ref)
+
+
+@pytest.mark.cuda
+def test_sgs_kernel_rejects_bad_inputs(cuda):
+    d = torch.ones(2, 6, dtype=torch.float64, device=cuda)
+    with pytest.raises(ValueError, match="float64"):
+        sgs_batch(d.float(), d.float(), 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        sgs_batch(d.T, d.T, 2)
+    with pytest.raises(ValueError, match="differ"):
+        sgs_batch(d, d[:1], 2)
+    with pytest.raises(ValueError, match="batch"):
+        sgs_batch(d, d, 0)
+    with pytest.raises(ValueError, match="shared memory"):
+        sgs_batch(d, d, 20000)
+
+
+def test_sgs_kernel_rejects_cpu_tensors():
+    """The kernel never takes CPU tensors (``ops.sgs_batch`` sends those
+    to the plain version); the check comes before any build or launch."""
+    d = torch.ones(1, 3, dtype=torch.float64)
+    with pytest.raises(ValueError, match="CUDA"):
+        sgs_batch(d, d, 2)
 
 
 def test_ssm_scan_kernel_rejects_cpu_tensors():

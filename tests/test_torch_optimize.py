@@ -285,14 +285,27 @@ def test_torch_without_device_raises_here(monkeypatch):
             **GA, backend="torch"))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         t_sweep.eval_sweep([t_sweep.EvalPoint(task, hw)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        t_sweep.solve_grid([t_sweep.EvalPoint(task, hw)], "latency",
+                           t_ga.GAConfig(**GA))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        t_sweep.pipeline_sweep([t_sweep.PipelinePoint(
+            [("a", 1.0, 2.0, 3.0)], 2)])
 
 
 def test_narrowings_name_their_roadmap_item():
     task, hw = _task("torch", "alexnet"), _hw("torch", "A4hbm")
-    with pytest.raises(NotImplementedError, match="A.2"):
-        t_ga.run_ga(task, hw, cfg=t_ga.GAConfig(engine="vectorized"))
+    with pytest.raises(NotImplementedError, match="A.4"):
+        t_ga.run_ga(task, hw, cfg=t_ga.GAConfig(
+            engine="vectorized", backend="torch", device="cpu",
+            devices="sharded"))
     with pytest.raises(NotImplementedError, match="A.4"):
         t_miqp.run_miqp(task, hw, cfg=t_miqp.MIQPConfig(devices="sharded"))
+    point = [t_sweep.EvalPoint(task, hw)]
+    with pytest.raises(NotImplementedError, match="A.5"):
+        t_sweep.solve_grid(point, "edp", method="cosearch")
+    with pytest.raises(NotImplementedError, match="A.4"):
+        t_sweep.solve_grid(point, "edp", method="multitenant")
     res = _optimize("torch", "alexnet", "A4hbm", "baseline")
     with pytest.raises(NotImplementedError, match="A.3"):
         res.segments(congestion="flow")
