@@ -2,18 +2,25 @@
 package's numpy modules, with a float64 torch evaluator for the card:
 
   * :mod:`.topology` — mesh geometry: entrance grouping and masks,
-    hop matrices (with diagonal links).
+    hop matrices (with diagonal links), link enumeration and XY routing
+    (``MeshGraph``).
   * :mod:`.hw` — MCM packaging types A–D, Table-2 constants, chiplet
     classes, the per-config :class:`Topology`.
   * :mod:`.workload` — GEMM-sequence tasks and partitions.
   * :mod:`.evaluator` — the end-to-end latency/energy/EDP model
     (Sec. 4.3/4.4) with redistribution and async execution
-    (Sec. 5.2/5.3), the closed-form congestion regime pick; numpy
-    reference backend plus a torch backend on the card
-    (:mod:`.evaluator_torch`).
+    (Sec. 5.2/5.3), with the closed-form congestion regime or simulated
+    flow congestion; numpy reference backend plus a torch backend on the
+    card (:mod:`.evaluator_torch`).
+  * :mod:`.netsim` — flow-level NoP simulator (Fig. 3): vectorized
+    max-min waterfilling engine + event-driven reference;
+    :mod:`.netsim_torch` — the batched engine on the card (the
+    hand-written waterfilling kernel), also run by the evaluator's
+    ``congestion="flow"`` mode.
   * :mod:`.sweep` — batched sweeps with result caching and checkpointed
     resume: evaluation, GA islands and MIQP lattice points
-    (``solve_grid``), pipelining (``pipeline_sweep``).
+    (``solve_grid``), pipelining (``pipeline_sweep``), the netsim
+    (``netsim_sweep``).
   * :mod:`.ga` / :mod:`.miqp` — the two solvers (Sec. 6.2/6.3): the GA's
     python and vectorized numpy engines and its device engine
     (:mod:`.ga_torch`), the HiGHS MILP, and :mod:`.miqp_lattice`, the
@@ -23,11 +30,12 @@ package's numpy modules, with a float64 torch evaluator for the card:
     the batched SGS on the card (:mod:`.pipelining_torch`).
   * :mod:`.api` — one-call front door, :func:`optimize`.
 """
+from . import netsim, netsim_torch  # noqa: F401
 from .api import (ScheduleResult, baseline_result, optimize,  # noqa: F401
                   refine_schedule)
 from .evaluator import (AUTO_POPULATION_THRESHOLD, BACKENDS,  # noqa: F401
-                        EvalOptions, EvalResult, Evaluator,
-                        resolve_auto_backend)
+                        CONGESTION_MODES, EvalOptions, EvalResult,
+                        Evaluator, resolve_auto_backend)
 from .ga import GAConfig, GAResult, run_ga  # noqa: F401
 from .hw import (TABLE2, ChipletClass, HWConfig, MCMType,  # noqa: F401
                  Topology, make_hw)
@@ -37,7 +45,7 @@ from .pipelining import (PIPELINE_ENGINES, PipelineConfig,  # noqa: F401
                          PipelineResult, pipeline_batch,
                          resolve_auto_pipeline_engine)
 from .sweep import (EvalPoint, PipelinePoint, eval_sweep,  # noqa: F401
-                    pipeline_sweep, solve_grid)
+                    netsim_sweep, pipeline_sweep, solve_grid)
 from .workload import (GemmOp, Partition, Task,  # noqa: F401
                        clamp_partition_to_domain, partition_domain,
                        uniform_partition)

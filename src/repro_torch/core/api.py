@@ -43,11 +43,14 @@ class ScheduleResult:
     solve_seconds: float
     # Evaluation context (DESIGN.md §13): the task, the *actual* hw the
     # schedule was scored on (optimize() toggles diagonal links per
-    # method), the EvalOptions used, and the scoring backend.
+    # method), the EvalOptions used, and the scoring backend and device —
+    # what segments() needs to re-derive per-op durations under a
+    # different congestion model.
     task: Task | None = None
     hw_used: HWConfig | None = None
     options: EvalOptions | None = None
     backend: str = "numpy"
+    device: object = None
 
     @property
     def latency(self) -> float:
@@ -66,18 +69,33 @@ class ScheduleResult:
     def segments(self, congestion: str | None = None
                  ) -> list[tuple[str, float, float, float]]:
         """Per-op ``(name, t_in, t_comp, t_out)`` durations of this
-        schedule for the RCPSP pipeliner (Sec. 5.4 / DESIGN.md §13), under
-        the closed-form congestion regime (``None`` or ``"regime"``). The
-        JAX package's ``congestion="flow"`` re-scoring needs the port's
-        netsim (ROADMAP.md A.3)."""
-        if congestion == "flow":
-            raise NotImplementedError(
-                "segments(congestion='flow') needs the port's flow "
-                "netsim (ROADMAP.md A.3)")
-        if congestion not in (None, "regime"):
-            raise ValueError(f"bad congestion {congestion!r}; one of "
-                             f"('regime', 'flow')")
-        return self.eval.segments()
+        schedule for the RCPSP pipeliner (Sec. 5.4 / DESIGN.md §13).
+
+        ``congestion`` re-scores the schedule under a different
+        congestion model (DESIGN.md §11) — ``"flow"`` makes the segment
+        durations come from simulated netsim arrival times instead of
+        the closed-form regime pick. Routed through the cached
+        :func:`.sweep.eval_sweep` on the schedule's ``backend`` and
+        ``device``, so repeated pipelining studies on one schedule
+        evaluate it once per congestion mode."""
+        if congestion is None:
+            return self.eval.segments()
+        if self.options is None:
+            # Construction without the context fields must not silently
+            # return wrong-congestion durations.
+            raise ValueError(
+                "congestion-aware segments need the evaluation context "
+                "(task/hw_used/options) — construct the ScheduleResult "
+                "via optimize()")
+        if congestion == self.options.congestion:
+            return self.eval.segments()
+        opts = dataclasses.replace(self.options, congestion=congestion)
+        rec = eval_sweep([EvalPoint(self.task, self.hw_used, opts,
+                                    self.partition, self.redist_mask)],
+                         backend=self.backend, device=self.device)[0]
+        return [(f"op{i}", float(rec["t_in"][i]), float(rec["t_comp"][i]),
+                 float(rec["t_out"][i]))
+                for i in range(len(rec["t_in"]))]
 
     def pipeline(self, batch: int, use_milp: bool = False,
                  config: PipelineConfig | None = None,
@@ -85,7 +103,10 @@ class ScheduleResult:
         """Cross-sample pipelining of this schedule (Sec. 5.4).
 
         ``config`` selects the scheduler engine (DESIGN.md §13);
-        ``congestion`` as in :meth:`segments`."""
+        ``congestion="flow"`` derives the segment durations from netsim
+        arrival times (see :meth:`segments`). Batched (workload × batch)
+        grids should go through :func:`.sweep.pipeline_sweep`
+        instead."""
         return pipeline_batch(self.segments(congestion), batch,
                               use_milp=use_milp, config=config)
 
@@ -280,5 +301,6 @@ def optimize(
     dt = time.perf_counter() - t0
     return ScheduleResult(method, objective, part, rd, res, base, dt,
                           task=task, hw_used=hw_used, options=opts,
-                          backend=scoring_backend)
+                          backend=scoring_backend,
+                          device=cfg.device if method == "ga" else device)
 

@@ -15,14 +15,14 @@ Two interchangeable backends, as in the JAX package:
     an explicit device (:mod:`.evaluator_torch`, the counterpart of the
     JAX package's ``evaluator_jax``), held to the reference at rtol 1e-9.
 
-The JAX package's ``congestion="flow"`` mode (link rates from the
-max-min waterfilling netsim) has no counterpart yet (ROADMAP.md, A.3).
-
 Modeling conventions:
   * Off-chip and NoP serialization per phase combine as ``max`` — the
     congestion-aware regime pick of Sec. 3.2/4.3.3 (memory-bound vs
-    NoP-bound); the slower resource is the bottleneck (the JAX
-    package's ``congestion="regime"``).
+    NoP-bound); the slower resource is the bottleneck. That is
+    ``congestion="regime"``; ``congestion="flow"`` instead scores the
+    distribution/collection phases against link rates simulated by the
+    max-min waterfilling netsim (:mod:`.netsim`) on the topology's flow
+    network (energy is congestion-independent).
   * Per-chiplet NoP time for distribution = received_bytes × hops / BW_nop
     with the hop matrices of eqs. 10–12 (+ the diagonal-link alternative
     of Sec. 5.1.1 taken as a per-chiplet min).
@@ -37,8 +37,16 @@ import numpy as np
 from .hw import HWConfig
 from .workload import Partition, Task
 
-__all__ = ["AUTO_POPULATION_THRESHOLD", "BACKENDS", "EvalOptions",
-           "EvalResult", "Evaluator", "resolve_auto_backend"]
+__all__ = ["AUTO_POPULATION_THRESHOLD", "BACKENDS", "CONGESTION_MODES",
+           "EvalOptions", "EvalResult", "Evaluator", "resolve_auto_backend"]
+
+
+#: Congestion models for the communication phases: "regime" = the
+#: closed-form max-pick of Sec. 3.2/4.3.3 (memory-bound vs NoP-bound,
+#: whichever serializes longer); "flow" = score the
+#: distribution/collection phases against link rates simulated by the
+#: max-min waterfilling netsim on the shared topology's flow network.
+CONGESTION_MODES = ("regime", "flow")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,10 +56,14 @@ class EvalOptions:
     redistribution: bool = False   # Sec. 5.2 on-package redistribution
     async_exec: bool = False       # Sec. 5.3 fused comm+comp
     energy_mode: str = "paper"     # "paper" (eq. 4.4.1 verbatim) | "per_chiplet"
+    congestion: str = "regime"     # "regime" (Sec. 4.3.3) | "flow" (netsim)
 
     def __post_init__(self):
         if self.energy_mode not in ("paper", "per_chiplet"):
             raise ValueError(f"bad energy_mode {self.energy_mode}")
+        if self.congestion not in CONGESTION_MODES:
+            raise ValueError(f"bad congestion {self.congestion!r}; "
+                             f"one of {CONGESTION_MODES}")
 
 
 @dataclasses.dataclass
@@ -104,13 +116,23 @@ class Evaluator:
     Both produce identical result dicts of float64 numpy arrays.
     ``"auto"`` defers the choice to each ``evaluate_batch`` call: torch
     for populations ≥ :data:`AUTO_POPULATION_THRESHOLD`, numpy below.
+
+    ``congestion`` (shorthand for ``options.congestion``) selects the
+    communication model: ``"regime"`` keeps the closed-form Sec. 3.2/4.3.3
+    max pick, ``"flow"`` scores distribution/collection against the
+    simulated link rates of the waterfilling netsim.
     """
 
     def __init__(self, task: Task, hw: HWConfig,
                  options: EvalOptions = EvalOptions(),
-                 backend: str = "numpy", device=None):
+                 backend: str = "numpy", device=None,
+                 congestion: str | None = None):
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; one of {BACKENDS}")
+        if congestion is not None:
+            # Constructor override of the options field: the merged
+            # options object is what travels into fingerprints.
+            options = dataclasses.replace(options, congestion=congestion)
         self.backend = backend
         self.device = device
         self._consts = None          # lazy constant bundle (torch backend)
@@ -258,9 +280,22 @@ class Evaluator:
         # NoP distribution: per-chiplet received bytes × hops / BW.
         tA_xy = inA[:, :, :, None] * self.hA[None, None]          # bytes*hops
         tW_xy = inW[:, :, None, :] * self.hW[None, None]
-        nop_in_xy = ((keepA[..., None, None] * tA_xy + tW_xy)
-                     / self.bw_nop_xy[None, None])
-        t_in = np.maximum(t_off_in, nop_in_xy.max(axis=(-1, -2)))
+        flow_mode = self.opts.congestion == "flow"
+        if flow_mode:
+            # Flow congestion: per-chiplet NoP arrival times from the
+            # simulated mesh link rates replace the hop-matrix closed
+            # form; off-chip serialization keeps the exact per-entrance
+            # term (shared stripes are fetched once per group — simulating
+            # the sole-user port would just re-derive t_off_in).
+            demand = (keepA[..., None, None] * inA[:, :, :, None]
+                      + inW[:, :, None, :])                      # [P,n,X,Y]
+            dist_done, t_coll_flow = self._flow_times(demand, chunk)
+            nop_in_xy = None          # regime-only (tA/tW still feed energy)
+            t_in = np.maximum(t_off_in, dist_done.max(axis=(-1, -2)))
+        else:
+            nop_in_xy = ((keepA[..., None, None] * tA_xy + tW_xy)
+                         / self.bw_nop_xy[None, None])
+            t_in = np.maximum(t_off_in, nop_in_xy.max(axis=(-1, -2)))
 
         # ------------------------------------------------ phase 2: compute
         # SCALE-Sim output-stationary latency (eq. 7) + SIMD epilogue.
@@ -278,17 +313,22 @@ class Evaluator:
         # directly under its memory stack).
         out_e = np.einsum("exy,pnxy->pne", self.ent_mask, chunk)
         t_off_out = (out_e / bw_ent).max(axis=-1)
-        out_at_ent = np.einsum("exy,pnxy->pne", self.ent_pos, chunk)
-        is3d = self.top.entrance_is_3d[None, None, :]
-        nonlocal_out = out_e - np.where(is3d, out_at_ent, 0.0)
-        with np.errstate(divide="ignore", invalid="ignore"):
-            t_collect = np.where(
-                self.links[None, None] > 0,
-                nonlocal_out
-                / (self.links[None, None] * self.bw_nop_ent[None, None]),
-                0.0,
-            ).max(axis=-1)
-        t_offload = np.maximum(t_collect, t_off_out)
+        if flow_mode:
+            # Collection: simulated mesh-flow completion replaces the
+            # entrance-link closed form; the off-chip write term stays.
+            t_offload = np.maximum(t_coll_flow, t_off_out)
+        else:
+            out_at_ent = np.einsum("exy,pnxy->pne", self.ent_pos, chunk)
+            is3d = self.top.entrance_is_3d[None, None, :]
+            nonlocal_out = out_e - np.where(is3d, out_at_ent, 0.0)
+            with np.errstate(divide="ignore", invalid="ignore"):
+                t_collect = np.where(
+                    self.links[None, None] > 0,
+                    nonlocal_out
+                    / (self.links[None, None] * self.bw_nop_ent[None, None]),
+                    0.0,
+                ).max(axis=-1)
+            t_offload = np.maximum(t_collect, t_off_out)
 
         # --------------------------------- phase 3b: redistribution path
         # (Sec. 5.2) Step 1: row gather toward collector column c.
@@ -327,8 +367,12 @@ class Evaluator:
         # ------------------------------------------------------- schedule
         if self.opts.async_exec:
             # Fuse comm+comp per chiplet for non-sync ops (Sec. 5.3).
-            fused_xy = nop_in_xy + t_comp_xy
-            t_fused = np.maximum(fused_xy.max(axis=(-1, -2)), t_off_in)
+            if flow_mode:
+                t_fused = np.maximum(
+                    (dist_done + t_comp_xy).max(axis=(-1, -2)), t_off_in)
+            else:
+                fused_xy = nop_in_xy + t_comp_xy
+                t_fused = np.maximum(fused_xy.max(axis=(-1, -2)), t_off_in)
             core = np.where(self.sync[None, :], t_in + t_comp, t_fused)
         else:
             core = t_in + t_comp
@@ -381,6 +425,38 @@ class Evaluator:
         }
 
     # -------------------------------------------------------------- helpers
+    def _flow_times(self, demand: np.ndarray, chunk: np.ndarray
+                    ) -> tuple[np.ndarray, np.ndarray]:
+        """Simulate the distribution and collection phases per
+        (candidate, op) on the topology's flow network (DESIGN.md §11).
+
+        ``demand``/``chunk`` are ``[P, n, X, Y]`` byte tensors. Returns
+        per-chiplet distribution completion times ``[P, n, X, Y]`` and
+        collection-phase latencies ``[P, n]``. Chiplets with an empty
+        mesh route (they sit on their entrance / under a 3D stack) are
+        masked to zero bytes — their data never touches the NoP, and the
+        off-chip terms already account for it. This is the numpy
+        reference loop; the torch backend sends every simulation of a
+        call to one launch of the waterfilling kernel
+        (:mod:`.evaluator_torch`)."""
+        from . import netsim
+
+        caps, dinc, cinc = self.top.flow_net()
+        P, n, X, Y = demand.shape
+        d_routed = (dinc.sum(axis=1) > 0).reshape(X, Y)
+        c_routed = (cinc.sum(axis=1) > 0).reshape(X, Y)
+        demand = demand * d_routed
+        chunk = chunk * c_routed
+        dist_done = np.zeros((P, n, X, Y), dtype=np.float64)
+        t_coll = np.zeros((P, n), dtype=np.float64)
+        for p in range(P):
+            for i in range(n):
+                r = netsim.simulate_flows(dinc, caps, demand[p, i].ravel())
+                dist_done[p, i] = r["done"].reshape(X, Y)
+                rc = netsim.simulate_flows(cinc, caps, chunk[p, i].ravel())
+                t_coll[p, i] = rc["latency"]
+        return dist_done, t_coll
+
     def objective_batch(self, Px, Py, collectors, redist, objective: str
                         ) -> np.ndarray:
         out = self.evaluate_batch(Px, Py, collectors, redist)

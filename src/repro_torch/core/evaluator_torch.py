@@ -25,10 +25,16 @@ Structure:
     (torch's default dtype is float32, and cycle counts overflow float32
     mantissas).
 
-Only the closed-form congestion regime (the JAX package's
-``congestion="regime"``) exists here; the flow mode comes with the
-port's netsim (ROADMAP.md, A.3). ``device=None`` means the card and
-raises without one (:func:`repro_torch.device.resolve_device`).
+``congestion="flow"`` sends every distribution and every collection
+simulation of a call (``2 · G · P · n``) to ONE launch of the
+hand-written waterfilling kernel
+(:func:`repro_torch.kernels.netsim.ops.waterfill`; on the CPU its plain
+version), the counterpart of the JAX package tracing
+``netsim_jax.waterfill_times`` per op inside its jit. The route lists
+it reads are constants of the topology, uploaded with the rest of the
+bundle, so a flow call on the card waits for the device nowhere.
+``device=None`` means the card and raises without one
+(:func:`repro_torch.device.resolve_device`).
 
 ``grid_evaluate.calls`` counts every evaluation by device type
 (``"cuda"``, ``"cpu"``), numpy-in or tensor-in, as the kernels' wrappers
@@ -43,14 +49,17 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..kernels.netsim import ops as netsim_ops
 from .evaluator import EvalOptions
 
 __all__ = ["EvalConsts", "batch_evaluate", "consts_from_evaluator",
            "evaluate_tensors", "grid_evaluate", "to_device", "upload"]
 
 #: dict of per-(Task, HWConfig) constants: per-op [n], per-chiplet
-#: [X, Y], per-row/cross-row [X] / [X-1], per-entrance [E...] arrays and
-#: 0-d scalars, each with a leading grid axis when stacked.
+#: [X, Y], per-row/cross-row [X] / [X-1], per-entrance [E...] arrays,
+#: the link-level flow network ([L], [X·Y, L], and the route lists [2,
+#: X·Y, X+Y-1]) and 0-d scalars, each with a leading grid axis when
+#: stacked.
 EvalConsts = Dict[str, Any]
 
 _F8 = torch.float64
@@ -59,11 +68,26 @@ _F8 = torch.float64
 def consts_from_evaluator(ev) -> EvalConsts:
     """The constant bundle of a numpy :class:`Evaluator`: float64 (and
     one bool) numpy arrays, equal bit for bit to the JAX package's
-    ``consts_from_evaluator`` on the keys the regime path reads (it
-    leaves out the flow network's)."""
+    ``consts_from_evaluator``, plus ``flow_routes``: the kernel's int32
+    route lists of the distribution and collection incidences ``[2, X·Y,
+    X+Y-1]`` (a width fixed by the mesh, so configurations of one shape
+    stack). In regime mode the flow keys are 1-element zeros, as in the
+    JAX package: consts are stacked per sweep point and moved to the
+    device, and regime mode never reads them."""
     hw = ev.hw
     f8 = lambda a: np.asarray(a, dtype=np.float64)  # noqa: E731
+    if ev.opts.congestion == "flow":
+        flow_cap, dist_inc, coll_inc = ev.top.flow_net()
+        width = hw.X + hw.Y - 1
+        flow_routes = np.stack([netsim_ops.route_lists(dist_inc, width),
+                                netsim_ops.route_lists(coll_inc, width)])
+    else:
+        flow_cap = dist_inc = coll_inc = np.zeros(1)
+        flow_routes = np.zeros(1, dtype=np.int32)
     return {
+        "flow_cap": f8(flow_cap),
+        "dist_inc": f8(dist_inc), "coll_inc": f8(coll_inc),
+        "flow_routes": flow_routes,
         "M": f8(ev.M), "K": f8(ev.K), "N": f8(ev.N),
         "sync": f8(ev.sync),
         "w_scale": f8(ev.w_scale), "epilogue": f8(ev.epilogue),
@@ -104,9 +128,40 @@ def to_device(consts: EvalConsts, device=None) -> dict[str, torch.Tensor]:
     return {k: upload(v, dev) for k, v in consts.items()}
 
 
+def _flow_times(c: dict[str, torch.Tensor], demand, chunk):
+    """The distribution and collection phases of every (grid point,
+    candidate, op) on the topology's flow network, in one call of the
+    waterfilling op: network ``2g`` is point ``g``'s distribution,
+    ``2g + 1`` its collection, each with ``P · n`` simulations.
+    ``demand``/``chunk`` are ``[G, P, n, X, Y]`` bytes; returns
+    per-chiplet distribution completion times ``[G, P, n, X, Y]`` and
+    collection latencies ``[G, P, n]``. Chiplets with an empty mesh route
+    (on their entrance, or under a 3D stack) are masked to zero bytes,
+    as in ``Evaluator._flow_times``."""
+    G, P, n, X, Y = demand.shape
+    F = X * Y
+    d_routed = (c["dist_inc"].sum(dim=-1) > 0).to(_F8)[:, None]  # [G,1,F]
+    c_routed = (c["coll_inc"].sum(dim=-1) > 0).to(_F8)[:, None]
+    msgs = torch.stack([demand.reshape(G, P * n, F) * d_routed,
+                        chunk.reshape(G, P * n, F) * c_routed], dim=1)
+    caps = c["flow_cap"][:, None].expand(G, 2, -1).reshape(2 * G, -1
+                                                           ).contiguous()
+    if demand.device.type == "cpu":
+        inc, routes = torch.stack([c["dist_inc"], c["coll_inc"]], 1), None
+        inc = inc.reshape((2 * G,) + inc.shape[2:])
+    else:                          # the kernel reads the route lists only
+        inc, routes = None, c["flow_routes"].reshape(
+            (2 * G,) + c["flow_routes"].shape[2:])
+    latency, done, _, _ = netsim_ops.waterfill(
+        caps, inc, msgs.reshape(2 * G, P * n, F), routes=routes,
+        link_bytes=False)
+    return (done.reshape(G, 2, P, n, X, Y)[:, 0],
+            latency.reshape(G, 2, P, n)[:, 1])
+
+
 def _evaluate(c: dict[str, torch.Tensor], Px, Py, collectors, redist, *,
-              redistribution: bool, async_exec: bool, energy_mode: str
-              ) -> dict[str, torch.Tensor]:
+              redistribution: bool, async_exec: bool, energy_mode: str,
+              congestion: str = "regime") -> dict[str, torch.Tensor]:
     """Line-for-line port of ``Evaluator._evaluate_batch_numpy`` with a
     leading grid axis: constants ``[G, ...]``, ``Px [G, P, n, X]``,
     ``Py [G, P, n, Y]``, ``collectors`` and ``redist`` ``[G, P, n]``."""
@@ -145,9 +200,19 @@ def _evaluate(c: dict[str, torch.Tensor], Px, Py, collectors, redist, *,
 
     tA_xy = inA[..., :, None] * c["hA"][:, None, None]       # bytes*hops
     tW_xy = inW[..., None, :] * c["hW"][:, None, None]
-    nop_in_xy = ((keepA[..., None, None] * tA_xy + tW_xy)
-                 / c["bw_nop_xy"][:, None, None])
-    t_in = torch.maximum(t_off_in, nop_in_xy.amax(dim=(-1, -2)))
+    flow_mode = congestion == "flow"
+    if flow_mode:
+        # Flow congestion: simulated per-chiplet NoP arrival times
+        # replace the hop-matrix closed form; off-chip serialization keeps
+        # the exact per-entrance term.
+        demand = (keepA[..., None, None] * inA[..., :, None]
+                  + inW[..., None, :])                       # [G,P,n,X,Y]
+        dist_done, t_coll_flow = _flow_times(c, demand, chunk)
+        t_in = torch.maximum(t_off_in, dist_done.amax(dim=(-1, -2)))
+    else:
+        nop_in_xy = ((keepA[..., None, None] * tA_xy + tW_xy)
+                     / c["bw_nop_xy"][:, None, None])
+        t_in = torch.maximum(t_off_in, nop_in_xy.amax(dim=(-1, -2)))
 
     # ------------------------------------------------ phase 2: compute
     fill = (2.0 * scalar("R", 2) + scalar("C", 2) + K - 2.0)[..., None, None]
@@ -162,16 +227,21 @@ def _evaluate(c: dict[str, torch.Tensor], Px, Py, collectors, redist, *,
     # ----------------------------------------- phase 3a: offload path
     out_e = torch.einsum("gexy,gpnxy->gpne", c["ent_mask"], chunk)
     t_off_out = (out_e / bw_ent).amax(dim=-1)
-    out_at_ent = torch.einsum("gexy,gpnxy->gpne", c["ent_pos"], chunk)
-    is3d = c["is3d"][:, None, None, :]
-    nonlocal_out = out_e - torch.where(is3d, out_at_ent, 0.0)
-    links = c["links"][:, None, None, :]
-    t_collect = torch.where(
-        links > 0,
-        nonlocal_out / (links * c["bw_nop_ent"][:, None, None, :]),
-        0.0,
-    ).amax(dim=-1)
-    t_offload = torch.maximum(t_collect, t_off_out)
+    if flow_mode:
+        # Collection: simulated mesh-flow completion replaces the
+        # entrance-link closed form; the off-chip write term stays.
+        t_offload = torch.maximum(t_coll_flow, t_off_out)
+    else:
+        out_at_ent = torch.einsum("gexy,gpnxy->gpne", c["ent_pos"], chunk)
+        is3d = c["is3d"][:, None, None, :]
+        nonlocal_out = out_e - torch.where(is3d, out_at_ent, 0.0)
+        links = c["links"][:, None, None, :]
+        t_collect = torch.where(
+            links > 0,
+            nonlocal_out / (links * c["bw_nop_ent"][:, None, None, :]),
+            0.0,
+        ).amax(dim=-1)
+        t_offload = torch.maximum(t_collect, t_off_out)
 
     # --------------------------------- phase 3b: redistribution path
     # (Sec. 5.2) Step 1: row gather toward collector column c.
@@ -209,7 +279,7 @@ def _evaluate(c: dict[str, torch.Tensor], Px, Py, collectors, redist, *,
 
     # ------------------------------------------------------- schedule
     if async_exec:
-        fused_xy = nop_in_xy + t_comp_xy
+        fused_xy = (dist_done if flow_mode else nop_in_xy) + t_comp_xy
         t_fused = torch.maximum(fused_xy.amax(dim=(-1, -2)), t_off_in)
         core = torch.where(per_op("sync") > 0, t_in + t_comp, t_fused)
     else:
@@ -277,7 +347,8 @@ def evaluate_tensors(c: dict[str, torch.Tensor], opts: EvalOptions,
         return _evaluate(c, Px, Py, collectors, redist,
                          redistribution=bool(opts.redistribution),
                          async_exec=bool(opts.async_exec),
-                         energy_mode=opts.energy_mode)
+                         energy_mode=opts.energy_mode,
+                         congestion=opts.congestion)
 
 
 def grid_evaluate(consts_stack: EvalConsts, opts: EvalOptions,

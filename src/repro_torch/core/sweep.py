@@ -27,6 +27,10 @@ This module turns those hand-rolled Python loops into:
     pipelining (DESIGN.md §13): same-(n_ops, batch) points schedule
     through one :func:`.pipelining_torch.schedule_batch` call (the
     hand-written SGS kernel on the card);
+  * :func:`netsim_sweep` — batched flow simulation (DESIGN.md §11):
+    same-mesh-shape nets run through one
+    :func:`.netsim_torch.simulate_pull_batch` call (one launch of the
+    hand-written waterfilling kernel on the card), with cached records;
   * a process-wide result cache keyed by content fingerprints (backend +
     task ops + HWConfig + options + partition bytes for evaluation
     records; + objective and the full solver config — GAConfig or
@@ -55,8 +59,8 @@ Two execution knobs ride on every sweep (DESIGN.md §15):
     seconds) -> bool``; a chunk it flags is reported on stderr.
 
 The torch paths run on ``device`` (``None``: the card, raising without
-one). The JAX package's netsim, co-search and multi-tenant sweeps come
-with ROADMAP.md A.3–A.5.
+one). The JAX package's co-search and multi-tenant sweeps come with
+ROADMAP.md A.5 and A.4.
 
 Typical use (LS baselines for one figure)::
 
@@ -86,6 +90,7 @@ __all__ = [
     "grid",
     "run_grid",
     "solve_grid",
+    "netsim_sweep",
     "pipeline_sweep",
     "clear_cache",
     "cache_stats",
@@ -480,6 +485,107 @@ def eval_sweep(
                 stacked, points[idxs[0]].options, Px, Py, co, rd, device)
             for g, i in enumerate(idxs):
                 records[i] = _record(points[i], out, (g, 0))
+
+    if cache:
+        for i in todo:
+            _CACHE[fps[i]] = _copy_record(records[i])
+    return records  # type: ignore[return-value]
+
+
+# ------------------------------------------------------ batched netsim
+def _rate_fp(v):
+    """Fingerprint component for a scalar-or-array rate: heterogeneous
+    per-chiplet capacities key by content bytes, scalars stay plain
+    floats."""
+    a = np.asarray(v, dtype=np.float64)
+    return float(a) if a.ndim == 0 else a.tobytes()
+
+
+def _netsim_fingerprint(net, message_bytes: float, backend) -> tuple:
+    """``backend`` is ``"numpy"`` or ``("torch", device type)``."""
+    ms = getattr(net, "mem_scale", None)
+    return ("netsim", backend, net.X, net.Y, _rate_fp(net.bw_nop),
+            float(net.bw_mem),
+            None if ms is None else _rate_fp(ms),
+            tuple(net.attach), float(message_bytes))
+
+
+def netsim_sweep(
+    nets: Sequence,
+    message_bytes: float,
+    backend: str = "torch",
+    cache: bool = True,
+    devices: str | None = None,
+    checkpoint=None,
+    checkpoint_every: int = 8,
+    straggler=None,
+    device=None,
+) -> list[dict[str, Any]]:
+    """Run the all-chiplets-pull flow simulation on every
+    :class:`.netsim.MeshNet`; returns records aligned with ``nets``
+    (DESIGN.md §11).
+
+    Torch backend (on ``device``; ``None`` means the card): uncached
+    nets are grouped by mesh shape (the :mod:`.topology` link space is a
+    pure function of (X, Y) — capacities and attachment sets are data)
+    and each group's whole (memory × placement × bandwidth) grid runs as
+    ONE launch of the waterfilling kernel
+    (:func:`.netsim_torch.simulate_pull_batch`). Numpy backend: the
+    per-net vectorized host engine — the parity reference. Records carry
+    ``latency`` (seconds), per-flow ``done`` times and per-link
+    ``link_bytes`` over the dense link space, and share the process-wide
+    result cache (fingerprint: backend, mesh shape, bandwidths,
+    attachment set, message size).
+
+    ``devices`` / ``checkpoint`` / ``straggler`` follow the §15 contract
+    (module docstring)."""
+    from . import netsim
+
+    if backend not in ("numpy", "torch"):
+        raise ValueError(f"unknown backend {backend!r}; "
+                         f"one of ('numpy', 'torch')")
+    _check_devices(devices)
+    if checkpoint is not None:
+        return _checkpointed(
+            nets, checkpoint, checkpoint_every, cache, straggler,
+            lambda c: netsim_sweep(c, message_bytes, backend=backend,
+                                   cache=True, devices=devices,
+                                   device=device))
+    key = _backend_key(backend, device)
+    records: list[dict[str, Any] | None] = [None] * len(nets)
+    todo: list[int] = []
+    fps: list[tuple | None] = [None] * len(nets)
+    for i, net in enumerate(nets):
+        if cache:
+            _lookup(fps, records, todo, i,
+                    _netsim_fingerprint(net, message_bytes, key))
+        else:
+            todo.append(i)
+
+    if todo and backend == "numpy":
+        for i in todo:
+            net = nets[i]
+            out = netsim.simulate_flows(
+                net.pull_incidence(), net.link_caps(),
+                np.full(net.X * net.Y, float(message_bytes)))
+            records[i] = {"latency": float(out["latency"]),
+                          "done": out["done"], "link_bytes": out["link_bytes"]}
+    elif todo:
+        from . import netsim_torch
+
+        groups: dict[tuple, list[int]] = {}
+        for i in todo:
+            groups.setdefault((nets[i].X, nets[i].Y), []).append(i)
+        for (X, Y), idxs in groups.items():
+            caps = np.stack([nets[i].link_caps() for i in idxs])
+            incs = np.stack([nets[i].pull_incidence() for i in idxs])
+            msgs = np.full((len(idxs), X * Y), float(message_bytes))
+            out = netsim_torch.simulate_pull_batch(caps, incs, msgs,
+                                                   device=device)
+            for g, i in enumerate(idxs):
+                records[i] = {"latency": float(out["latency"][g]),
+                              "done": out["done"][g],
+                              "link_bytes": out["link_bytes"][g]}
 
     if cache:
         for i in todo:

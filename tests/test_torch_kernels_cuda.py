@@ -8,7 +8,11 @@ the GEMM (K tails and unaligned rows), and of the chunked SSD and WKV-6
 (every state and head dim, ragged lengths, initial states, strided
 views, vanishing decays, a head dim over two column tiles); the batched
 SGS of the pipeliner, bit for bit against its plain version (random and
-tied durations, one job, one sample, batches over a warp). (Every
+tied durations, one job, one sample, batches over a warp); the batched
+waterfilling netsim against its plain version and the numpy engine
+(Fig. 3's cells, random meshes up to 16x16, zero and single flows, a
+stall, route structures shared or per network, the evaluator's flow
+mode). (Every
 kernel against its plain version at every variant, in both dtypes, is also
 ``chip_smoke.py``'s kernel phase.) The ``cuda``-marked tests
 need an NVIDIA Hopper card and nvcc and skip elsewhere. Imports no JAX,
@@ -26,6 +30,9 @@ from repro_torch.kernels.flash_attention.blockwise import blockwise_attention
 from repro_torch.kernels.flash_attention.kernel import flash_attention
 from repro_torch.kernels.gemm.kernel import matmul
 from repro_torch.kernels.gemm.ref import matmul_ref
+from repro_torch.kernels.netsim import ops as netsim_ops
+from repro_torch.kernels.netsim.kernel import waterfill
+from repro_torch.kernels.netsim.ref import waterfill_ref
 from repro_torch.kernels.rwkv6.chunked import wkv6_chunked
 from repro_torch.kernels.rwkv6.kernel import wkv6
 from repro_torch.kernels.sgs.kernel import sgs_batch
@@ -428,6 +435,202 @@ def test_sgs_kernel_rejects_cpu_tensors():
     d = torch.ones(1, 3, dtype=torch.float64)
     with pytest.raises(ValueError, match="CUDA"):
         sgs_batch(d, d, 2)
+
+
+GB = 1e9
+# Random meshes (X, Y, attach count, seed) for the waterfilling kernel:
+# pull flows from random attach sets with random per-chiplet demand.
+NETSIM_MESHES = {"1x1": (1, 1, 1, 0), "2x3": (2, 3, 2, 1),
+                 "4x4": (4, 4, 3, 2), "8x8": (8, 8, 4, 3),
+                 "5x12": (5, 12, 2, 4), "16x16": (16, 16, 1, 5)}
+
+
+def _netsim_case(X, Y, k, seed):
+    import numpy as np
+    from repro_torch.core.netsim import MeshNet
+    rng = np.random.default_rng(seed)
+    attach = sorted(rng.choice(X * Y, size=k, replace=False).tolist())
+    net = MeshNet(X, Y, float(rng.uniform(20, 200)) * GB,
+                  float(rng.uniform(20, 2000)) * GB, attach)
+    return net, rng.uniform(0.01, 1.0, X * Y) * GB
+
+
+def _netsim_both(cuda, cap, inc, msgs):
+    """The kernel (one launch) and its plain version on the card, on
+    ``cap [N, L]``, ``inc [N, F, L]``, ``msgs [N, S, F]`` numpy arrays."""
+    import numpy as np
+    c, i, m = (torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+               for a in (cap, inc, msgs))
+    routes = torch.from_numpy(netsim_ops.route_lists(inc)).to(cuda)
+    before = waterfill.launches
+    got = waterfill(c, routes, m)
+    assert waterfill.launches == before + 1
+    torch.cuda.synchronize()
+    return got, waterfill_ref(c, i, m)
+
+
+def _netsim_equal(got, ref):
+    """latency, done and rounds bit for bit; link_bytes summed in
+    another order (rtol 1e-9, atol 1e-3 bytes)."""
+    lat, done, lb, rounds = got
+    for a, b in ((lat, ref[0]), (done, ref[1])):   # NaN where both stall
+        torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+    assert torch.equal(rounds, ref[3])
+    torch.testing.assert_close(lb, ref[2], rtol=1e-9, atol=1e-3,
+                               equal_nan=True)
+
+
+@pytest.mark.cuda
+def test_netsim_kernel_fig3_cells(cuda):
+    """Fig. 3's eight cells in one launch: bit for bit against the plain
+    version and the numpy engine."""
+    import numpy as np
+    from repro_torch.core.netsim import fig3_net, simulate_flows
+    nets = [fig3_net(m, p, bw * GB) for m in ("dram", "hbm")
+            for p in ("peripheral", "central") for bw in (60, 120)]
+    cap = np.stack([n.link_caps() for n in nets])
+    inc = np.stack([n.pull_incidence() for n in nets])
+    msgs = np.full((len(nets), 1, 16), GB)
+    got, ref = _netsim_both(cuda, cap, inc, msgs)
+    _netsim_equal(got, ref)
+    for g, n in enumerate(nets):
+        want = simulate_flows(inc[g], cap[g], msgs[g, 0])
+        assert float(got[0][g, 0]) == want["latency"]
+        assert np.array_equal(got[1][g, 0].cpu().numpy(), want["done"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", NETSIM_MESHES)
+def test_netsim_kernel_random_meshes(cuda, case):
+    import numpy as np
+    from repro_torch.core.netsim import simulate_flows
+    net, msgs = _netsim_case(*NETSIM_MESHES[case])
+    cap, inc = net.link_caps(), net.pull_incidence()
+    got, ref = _netsim_both(cuda, cap[None], inc[None], msgs[None, None])
+    _netsim_equal(got, ref)
+    want = simulate_flows(inc, cap, msgs)
+    assert float(got[0][0, 0]) == want["latency"]
+    assert np.array_equal(got[1][0, 0].cpu().numpy(), want["done"])
+
+
+@pytest.mark.cuda
+def test_netsim_kernel_flow_net_16x16_random_demand(cuda):
+    """The evaluator's network at the paper's largest mesh (type A, mesh
+    routes only) with random per-chiplet demand, some chiplets idle."""
+    import numpy as np
+    from repro_torch.core.hw import make_hw
+    cap, dinc, cinc = make_hw("A", 16, "hbm").topology.flow_net()
+    rng = np.random.default_rng(7)
+    msgs = rng.uniform(0.0, 1.0, (2, 3, 256)) * 1e6
+    msgs[:, :, rng.random(256) < 0.2] = 0.0
+    routed = np.stack([dinc, cinc]).sum(-1) > 0
+    msgs *= routed[:, None, :]
+    got, ref = _netsim_both(cuda, np.stack([cap, cap]),
+                            np.stack([dinc, cinc]), msgs)
+    _netsim_equal(got, ref)
+    assert int(got[3].max()) > 10
+
+
+@pytest.mark.cuda
+def test_netsim_kernel_zero_single_and_stalled_flows(cuda):
+    """All-zero demand ends at 0 with no round; one flow runs at its
+    route's least capacity; a dead port stalls its simulation (NaN in
+    every float output) and leaves the others in the launch alone."""
+    import numpy as np
+    net, msgs = _netsim_case(4, 4, 2, 8)
+    cap, inc = net.link_caps(), net.pull_incidence()
+    dead = cap.copy()
+    dead[net.graph.index[(net.mem, net.attach[0])]] = 0.0
+    single = np.zeros(16)
+    single[15] = GB
+    caps = np.stack([cap, cap, cap, dead])
+    got, ref = _netsim_both(cuda, caps, np.stack([inc] * 4),
+                            np.stack([msgs, np.zeros(16), single, msgs]
+                                     )[:, None])
+    _netsim_equal(got, ref)
+    lat, done, lb, rounds = (t[:, 0].cpu() for t in got)
+    assert float(lat[1]) == 0.0 and int(rounds[1]) == 0
+    assert not done[1].any() and not lb[1].any()
+    assert float(lat[2]) == pytest.approx(GB / cap[inc[15] > 0].min(),
+                                          rel=1e-12)
+    assert torch.isnan(lat[3]) and torch.isnan(done[3]).all()
+    assert torch.isnan(lb[3]).all()
+    assert torch.isfinite(lat[:3]).all()
+
+
+@pytest.mark.cuda
+def test_netsim_kernel_shared_and_per_cell_routes(cuda):
+    """One network shared by S simulations (the evaluator's layout)
+    equals S copies of it, one simulation each (netsim_sweep's)."""
+    import numpy as np
+    net, _ = _netsim_case(8, 8, 3, 9)
+    cap, inc = net.link_caps(), net.pull_incidence()
+    msgs = np.random.default_rng(9).uniform(0.01, 1.0, (5, 64)) * GB
+    shared, _ = _netsim_both(cuda, cap[None], inc[None], msgs[None])
+    per, _ = _netsim_both(cuda, np.stack([cap] * 5), np.stack([inc] * 5),
+                          msgs[:, None])
+    assert torch.equal(shared[0][0], per[0][:, 0])
+    assert torch.equal(shared[1][0], per[1][:, 0])
+    lb = shared[2]
+    none = waterfill(*(torch.from_numpy(a).to(cuda) for a in (
+        cap[None], netsim_ops.route_lists(inc[None]), msgs[None])),
+        link_bytes=False)
+    assert none[2] is None and torch.equal(none[0], shared[0])
+    assert lb.shape == (1, 5, cap.size)
+
+
+@pytest.mark.cuda
+def test_netsim_kernel_rejects_bad_inputs(cuda):
+    cap = torch.ones(1, 8, dtype=torch.float64, device=cuda)
+    routes = torch.zeros(1, 4, 2, dtype=torch.int32, device=cuda)
+    msgs = torch.ones(1, 3, 4, dtype=torch.float64, device=cuda)
+    with pytest.raises(ValueError, match="float64"):
+        waterfill(cap.float(), routes, msgs)
+    with pytest.raises(ValueError, match="int32"):
+        waterfill(cap, routes.long(), msgs)
+    with pytest.raises(ValueError, match="disagree"):
+        waterfill(cap, routes, msgs[..., :3].contiguous())
+    big = torch.zeros(1, 1025, 2, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="1024"):
+        waterfill(cap, big, torch.ones(1, 1, 1025, dtype=torch.float64,
+                                       device=cuda))
+    wide = torch.zeros(1, 1024, 64, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        waterfill(cap, wide, torch.ones(1, 1, 1024, dtype=torch.float64,
+                                        device=cuda))
+
+
+def test_netsim_kernel_rejects_cpu_tensors():
+    """The kernel never takes CPU tensors (``ops.waterfill`` sends those
+    to the plain version); the check comes before any build or launch."""
+    cap = torch.ones(1, 4, dtype=torch.float64)
+    with pytest.raises(ValueError, match="CUDA"):
+        waterfill(cap, torch.zeros(1, 2, 1, dtype=torch.int32),
+                  torch.ones(1, 1, 2, dtype=torch.float64))
+
+
+@pytest.mark.cuda
+def test_netsim_evaluator_flow_mode_on_the_card(cuda):
+    """The torch evaluator in flow mode on the card: one launch a call
+    and the numpy evaluator's numbers at rtol 1e-9."""
+    import numpy as np
+    from repro_torch.core import EvalOptions, Evaluator, make_hw
+    from repro_torch.core.workload import uniform_partition
+    from repro_torch.graphs import WORKLOADS
+    task = WORKLOADS["alexnet"](batch=1)
+    for t in "ABCD":
+        hw = make_hw(t, 4, "hbm")
+        opts = EvalOptions(redistribution=True, async_exec=True,
+                           congestion="flow")
+        part = uniform_partition(task, 4, 4)
+        before = waterfill.launches
+        got = Evaluator(task, hw, opts, backend="torch",
+                        device=cuda).evaluate(part)
+        assert waterfill.launches == before + 1
+        want = Evaluator(task, hw, opts).evaluate(part)
+        assert got.latency == pytest.approx(want.latency, rel=1e-9)
+        np.testing.assert_allclose(got.t_in, want.t_in, rtol=1e-9)
+        np.testing.assert_allclose(got.t_out, want.t_out, rtol=1e-9)
 
 
 def test_ssm_scan_kernel_rejects_cpu_tensors():

@@ -307,6 +307,8 @@ def test_narrowings_name_their_roadmap_item():
     with pytest.raises(NotImplementedError, match="A.4"):
         t_sweep.solve_grid(point, "edp", method="multitenant")
     res = _optimize("torch", "alexnet", "A4hbm", "baseline")
-    with pytest.raises(NotImplementedError, match="A.3"):
-        res.segments(congestion="flow")
+    # Flow congestion (A.3) is no narrowing any more: it re-scores.
+    flow = res.segments(congestion="flow")
+    assert [s[0] for s in flow] == [s[0] for s in res.segments()]
+    assert flow != res.segments()
     assert res.segments("regime") == res.segments()
