@@ -76,6 +76,23 @@ Phases, each printing its lines; any failure exits nonzero:
      plain version (whole launch) and, on 32 sampled simulations, the
      plain version and numpy; the JAX suite's toy solve_grid under flow,
      cached. The TPU kernels' counts stay 0.
+  9. multi-tenant packages, the server and sharding: fig_hetero's
+     multi-tenant leg (AlexNet + ViT-B/16 on the two-class 4x4 grid),
+     uniform held to numpy (slowdowns bit for bit, scores at rtol 1e-9)
+     and GA (P 64, G 60) beating the even split with every fitness call
+     on cuda; the paper's four workloads as four tenants on 16x16 type
+     A, the contention of all 64 band assignments in ONE waterfilling
+     launch, bit for bit numpy's per-assignment loop, the assignment
+     numpy's, the kernel at that shape beside its bound and plain
+     version; the optimisation server (repro_torch.serve.OptServer) on
+     the CLI demo's 64 requests plus fig_hetero's GA points and the
+     four-tenant solve: served == solo bit for bit, its stats, one
+     malformed request failing alone, a kill and a restart from a store
+     in build/ serving everything again with no cache miss and no
+     kernel launch; devices="sharded" with the card listed once and
+     three times on eval (both congestion models), GA islands,
+     netsim_sweep, pipeline_sweep and the MIQP lattice, bit for bit the
+     single-device records. The TPU kernels' counts stay 0.
 Then one JSON line of kernel numbers, and as the last line
 {"ok": true, "device": {...}}. Without a card it exits 1 and prints no
 result. Imports nothing of JAX.
@@ -2218,6 +2235,414 @@ def phase_flow():
     return dict(main_launches), row
 
 
+# Phase 9: multi-tenant packages, the optimisation server and device
+# sharding on the card. A multi-tenant solve's contention simulations
+# (the joint and solo demands of every band assignment) run as ONE launch
+# of the waterfilling kernel, whose slowdowns must equal the numpy
+# engine's per-assignment loop bit for bit (every float64 operation is
+# numpy's, in its order); scores are held to numpy at MT_RTOL, the torch
+# backend's contract (DESIGN.md §8). The server's records must equal
+# solo sweep calls bit for bit, and a sharded sweep the single-device
+# one (DESIGN.md §14-§15).
+MT_RTOL = 1e-9
+MT_GRID = 16                  # the paper's largest mesh
+SERVE_DEMO_REQUESTS = 64      # the JAX CLI demo's traffic
+SERVE_WAIT_S = 300
+SHARD_MESHES = (1, 3)         # the card listed once and three times
+SHARD_GA = dict(population=64, generations=20, patience=8, seed=0)
+
+
+def _same_record(a, b):
+    """Bit-identical records of any family the server returns."""
+    if isinstance(a, dict):
+        return all(np.array_equal(a[k], b[k]) for k in
+                   ("latency", "energy", "edp", "t_in", "t_comp", "t_out"))
+    if hasattr(a, "pipelined"):
+        return (a.batch, a.sequential, a.pipelined) == \
+            (b.batch, b.sequential, b.pipelined)
+    if hasattr(a, "assignment"):
+        return (a.assignment == b.assignment and a.objective == b.objective
+                and a.per_tenant == b.per_tenant
+                and a.baseline == b.baseline
+                and all(np.array_equal(p.Px, q.Px)
+                        and np.array_equal(p.Py, q.Py)
+                        for p, q in zip(a.partitions, b.partitions)))
+    return (a.objective == b.objective
+            and np.array_equal(a.partition.Px, b.partition.Px)
+            and np.array_equal(a.partition.Py, b.partition.Py)
+            and np.array_equal(a.redist_mask, b.redist_mask)
+            and np.array_equal(getattr(a, "history", 0),
+                               getattr(b, "history", 0)))
+
+
+def _solo(req):
+    """One request through its sweep call alone, uncached, on the card."""
+    from repro_torch.core import sweep
+    if req.kind == "eval":
+        return sweep.eval_sweep([req.point], backend=req.backend,
+                                cache=False)[0]
+    if req.kind == "pipeline":
+        return sweep.pipeline_sweep([req.point], req.cfg,
+                                    backend=req.backend, cache=False)[0]
+    return sweep.solve_grid([req.point], req.objective, req.cfg,
+                            backend=req.backend, cache=False,
+                            method=req.method)[0]
+
+
+def phase_multitenant():
+    """Phase 9: multi-tenant packages, the server and sharding through
+    repro_torch on the card: (a) fig_hetero's multi-tenant leg at its
+    full profile (AlexNet + ViT-B/16 on the two-class 4x4 grid), uniform
+    held to numpy and GA beating the even split; (b) the paper's four
+    workloads as four tenants on 16x16 type A, 64 band assignments, the
+    contention in one launch bitwise numpy's, the kernel at that shape
+    timed beside its bound and plain version; (c) the optimisation
+    server on the CLI demo's traffic plus fig_hetero's GA points and (b)
+    as requests: served == solo, its stats, a kill and restart from a
+    store in build/ that recomputes nothing, one malformed request
+    failing alone; (d) devices="sharded" with the card listed 1 and 3
+    times on eval, GA islands, the netsim, the SGS and the lattice,
+    bitwise the single-device records. No TPU kernel launches."""
+    import os
+
+    from repro_torch.core import evaluator_torch, sweep, sweep_shard
+    from repro_torch.core import multitenant as mt
+    from repro_torch.core.evaluator import EvalOptions
+    from repro_torch.core.ga import GAConfig
+    from repro_torch.core.hw import make_hw
+    from repro_torch.core.miqp import MIQPConfig
+    from repro_torch.core.netsim import fig3_net
+    from repro_torch.core.workload import uniform_partition
+    from repro_torch.graphs import WORKLOADS
+    from repro_torch.kernels.netsim import ops as netsim_ops
+    from repro_torch.kernels.netsim.kernel import (blocks_per_sm,
+                                                   step_probe, waterfill)
+    from repro_torch.kernels.netsim.ref import waterfill_ref
+    from repro_torch.serve import BadRequest, OptRequest, OptServer
+    from repro_torch.serve import optserver
+
+    t_phase = time.perf_counter()
+    sweep.clear_cache()
+    main_launches = collections.Counter()
+    calls = evaluator_torch.grid_evaluate.calls
+
+    def leg_counts(name):
+        counts = launch_counts()
+        assert not any(counts[k] for k in TPU_KERNELS), (name, counts)
+        main_launches.update(counts)
+        return counts
+
+    tasks = {w: WORKLOADS[w](batch=1) for w in SWEEP_WORKLOADS}
+    grids = hetero_grids()
+    two = grids["two_class"]
+    pair = [tasks["alexnet"], tasks["vit"]]
+    uniform = mt.MultiTenantConfig(method="uniform")
+
+    # (a) fig_hetero's multi-tenant leg (benchmarks/fig_hetero.py): the
+    # fast profile's uniform inner solves, then the full profile's GA.
+    reset_launch_counts()
+    calls.clear()
+    t0 = time.perf_counter()
+    got = mt.solve_multitenant(pair, two, "edp", cfg=uniform)
+    uni_s = time.perf_counter() - t0
+    counts = leg_counts("fig_hetero_uniform")
+    assert counts["netsim_waterfill"] == 1, counts
+    assert set(calls) == {"cuda"}, dict(calls)
+    t0 = time.perf_counter()
+    want = mt.solve_multitenant(pair, two, "edp", cfg=uniform,
+                                backend="numpy")
+    uni_numpy_s = time.perf_counter() - t0
+    assert got.assignment == want.assignment, (got.assignment,
+                                               want.assignment)
+    assert [d["slowdown"] for d in got.per_tenant] == \
+        [d["slowdown"] for d in want.per_tenant]
+    for f in ("objective", "latency", "energy", "edp"):
+        assert math.isclose(getattr(got, f), getattr(want, f),
+                            rel_tol=MT_RTOL), f
+    for a, b in zip(got.per_tenant, want.per_tenant):
+        assert math.isclose(a["edp"], b["edp"], rel_tol=MT_RTOL)
+    log("multitenant", json.dumps({
+        "leg": "fig_hetero_uniform", "assignment": got.assignment,
+        "even_split": got.baseline["assignment"],
+        "edp": got.edp, "even_split_edp": got.baseline["edp"],
+        "slowdowns_bit_identical_to_numpy": True,
+        "solve_s_torch_cuda (host clock)": uni_s,
+        "solve_s_numpy (host clock)": uni_numpy_s,
+        "waterfilling_launches": counts["netsim_waterfill"]}))
+
+    ga_cfg = GAConfig(population=64, generations=60, seed=0)
+    reset_launch_counts()
+    calls.clear()
+    t0 = time.perf_counter()
+    res = mt.solve_multitenant(pair, two, "edp", cfg=mt.MultiTenantConfig(
+        method="ga", cfg=ga_cfg))
+    ga_s = time.perf_counter() - t0
+    counts = leg_counts("fig_hetero_ga")
+    assert counts["netsim_waterfill"] == 1, counts
+    assert set(calls) == {"cuda"} and calls["cuda"] > 0, dict(calls)
+    assert res.objective < res.baseline["edp"], (res.objective,
+                                                 res.baseline)
+    for part, (x0, x1) in zip(res.partitions, res.assignment):
+        assert part.Px.shape[1] == x1 - x0
+    log("multitenant", json.dumps({
+        "leg": "fig_hetero_ga (P 64, G 60, seed 0)",
+        "assignment": res.assignment, "edp": res.edp,
+        "even_split_edp": res.baseline["edp"],
+        "improvement_vs_even_split": res.baseline["edp"] / res.edp,
+        "fitness_calls": dict(calls), "evaluations": res.evaluations,
+        "solve_s_torch_cuda (host clock)": ga_s}))
+
+    # (b) The paper's four workloads as four tenants on 16x16 type A:
+    # every band assignment's contention in one launch.
+    hw16 = make_hw("A", MT_GRID, "hbm")
+    four = [tasks[w] for w in SWEEP_WORKLOADS]
+    assignments = mt.band_assignments(MT_GRID, len(four),
+                                      uniform.max_assignments)
+    seen = []
+    real = netsim_ops.waterfill
+
+    def record(caps, inc, msgs, routes=None, link_bytes=True):
+        seen.append((caps, msgs, routes))
+        return real(caps, inc, msgs, routes=routes, link_bytes=link_bytes)
+
+    reset_launch_counts()
+    netsim_ops.waterfill = record
+    try:
+        t0 = time.perf_counter()
+        got4 = mt.solve_multitenant(four, hw16, "edp", cfg=uniform)
+        torch.cuda.synchronize()
+        four_s = time.perf_counter() - t0
+    finally:
+        netsim_ops.waterfill = real
+    counts = leg_counts("four_tenants")
+    assert counts["netsim_waterfill"] == 1 and len(seen) == 1, counts
+    t0 = time.perf_counter()
+    want4 = mt.solve_multitenant(four, hw16, "edp", cfg=uniform,
+                                 backend="numpy")
+    four_numpy_s = time.perf_counter() - t0
+    assert got4.assignment == want4.assignment, (got4.assignment,
+                                                 want4.assignment)
+    assert math.isclose(got4.edp, want4.edp, rel_tol=MT_RTOL)
+    t0 = time.perf_counter()
+    slow_numpy = np.stack([mt._contention_slowdowns(four, a, hw16)
+                           for a in assignments])
+    contention_numpy_s = time.perf_counter() - t0
+    slow_card = mt._contention_slowdowns_batch(four, assignments, hw16)
+    assert np.array_equal(slow_card, slow_numpy)
+    caps, msgs, routes = seen[0]
+    N, S, F = msgs.shape
+    L, R = caps.shape[1], routes.shape[2]
+    lat_k, done_k, _, rounds = waterfill(caps, routes, msgs,
+                                         link_bytes=False)
+    torch.cuda.synchronize()
+    kernel_ms = time_ms(lambda: waterfill(caps, routes, msgs,
+                                          link_bytes=False), reps=10)
+    kernel_burst = burst_ms(lambda: waterfill(caps, routes, msgs,
+                                              link_bytes=False),
+                            calls=10, reps=3)
+    _, dinc, _ = hw16.topology.flow_net()
+    inc = torch.from_numpy(dinc[None]).cuda()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lat_p, done_p, _, rounds_p = waterfill_ref(caps, inc, msgs,
+                                               link_bytes=False)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    assert torch.equal(rounds, rounds_p)
+    assert torch.equal(lat_k, lat_p) and torch.equal(done_k, done_p)
+    zero = msgs == 0
+    assert bool((done_k[zero] == 0).all())     # idle flows end at t = 0
+    probe_rounds = 20000
+    probe_ms = burst_ms(lambda: step_probe(probe_rounds, F, caps.device),
+                        calls=5, reps=3)
+    round_us = 1e3 * probe_ms / probe_rounds
+    resident = (torch.cuda.get_device_properties(0).multi_processor_count
+                * blocks_per_sm(F, L, R))
+    r = rounds.cpu().numpy().astype(np.int64)
+    rounds_ms = max(int(r.max()) * round_us,
+                    int(r.sum()) * round_us / resident) / 1e3
+    nbytes = (8 * N * L + 4 * N * F * R + 8 * N * S * F        # in
+              + 8 * N * S + 8 * N * S * F + 4 * N * S)         # out
+    bytes_ms = 1e3 * nbytes / H100_BYTES_PER_S
+    contention = {
+        "shape": {"networks": N, "simulations": S, "F": F, "L": L, "R": R,
+                  "assignments": len(assignments),
+                  "resident_blocks": resident},
+        "kernel_ms": kernel_ms, "kernel_burst_ms": kernel_burst,
+        "plain_ms": plain_ms,
+        "rounds_max": int(r.max()), "rounds_mean": float(r.mean()),
+        "round_us": round_us, "bound_ms": max(rounds_ms, bytes_ms),
+        "rounds_bound_ms": rounds_ms, "bytes_bound_ms": bytes_ms,
+        "bound_by": "operations" if rounds_ms >= bytes_ms else "bytes",
+        "max_abs_err": max(float((lat_k - lat_p).abs().max()),
+                           float((done_k - done_p).abs().max())),
+        "bit_identical_to_plain": True, "library_ms": None}
+    log("multitenant", json.dumps({
+        "leg": "four_tenants_16x16_uniform",
+        "assignment": got4.assignment,
+        "slowdowns": [d["slowdown"] for d in got4.per_tenant],
+        "edp": got4.edp, "even_split_edp": got4.baseline["edp"],
+        "contention_launches": counts["netsim_waterfill"],
+        "slowdowns_bit_identical_to_numpy (all assignments)": True,
+        "solve_s_torch_cuda (host clock)": four_s,
+        "solve_s_numpy (host clock)": four_numpy_s,
+        "contention_s_numpy_per_assignment_loop (host clock)":
+            contention_numpy_s}))
+    log("multitenant", "netsim_waterfill at the contention launch "
+        + json.dumps(contention))
+
+    # (c) The optimisation server on the card: the CLI demo's traffic,
+    # fig_hetero's GA points as solve requests and (b) as a multi-tenant
+    # request, plus one malformed request.
+    ga_opts = EvalOptions(redistribution=True, async_exec=True)
+    het_pts = [sweep.EvalPoint(tasks[w], hw, ga_opts)
+               for w in ("alexnet", "vit") for hw in grids.values()]
+    reqs = optserver._demo_requests(SERVE_DEMO_REQUESTS)
+    reqs += [OptRequest("solve", pt, objective="edp", method="ga",
+                        cfg=ga_cfg) for pt in het_pts]
+    reqs.append(OptRequest("solve", sweep.MultiTenantPoint(tuple(four),
+                                                           hw16),
+                           objective="edp", method="multitenant",
+                           cfg=uniform))
+    t0 = time.perf_counter()
+    solo = [_solo(q) for q in reqs[:-1]] + [got4]
+    solo_s = time.perf_counter() - t0
+    bad_task = tasks["alexnet"]
+    bad_part = uniform_partition(bad_task, 4, 4)
+    bad_part.Px[0, 0] += 7
+    bad = OptRequest("eval", sweep.EvalPoint(bad_task, make_hw("A", 4,
+                                                                "hbm"),
+                                             partition=bad_part))
+    store = ROOT / "build" / "phase9-sweep-cache.bin"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    if store.exists():
+        os.remove(store)
+    sweep.clear_cache()
+    reset_launch_counts()
+    srv = OptServer(store_path=str(store), max_batch=len(reqs) + 1,
+                    autostart=False)
+    futs = [srv.submit(q) for q in reqs[:10]] + [srv.submit(bad)] + \
+        [srv.submit(q) for q in reqs[10:]]
+    bad_fut = futs.pop(10)
+    srv.start()
+    served = [f.result(timeout=SERVE_WAIT_S) for f in futs]
+    try:
+        bad_fut.result(timeout=SERVE_WAIT_S)
+        raise AssertionError("a malformed request was served")
+    except BadRequest:
+        pass
+    assert srv.drain(timeout=SERVE_WAIT_S)
+    stats = srv.stats()
+    srv.kill()
+    counts = leg_counts("server")
+    assert counts["netsim_waterfill"] == 1, counts
+    pipe_groups = {(len(q.point.segments), int(q.point.batch))
+                   for q in reqs if q.kind == "pipeline"}
+    assert counts["sgs_batch"] == len(pipe_groups), (counts, pipe_groups)
+    same = [_same_record(a, b) for a, b in zip(solo, served)]
+    assert all(same), [q.kind for q, ok in zip(reqs, same) if not ok]
+    assert stats["completed"] == len(reqs) and stats["rejected"] == 1
+    # Restart on the store: everything served again from it, no launch.
+    sweep.clear_cache()
+    reset_launch_counts()
+    srv2 = OptServer(store_path=str(store), max_batch=len(reqs))
+    loaded = srv2.store_info["loaded"]
+    again = [f.result(timeout=SERVE_WAIT_S)
+             for f in [srv2.submit(q) for q in reqs]]
+    stats2 = srv2.stats()
+    srv2.close(timeout=SERVE_WAIT_S)
+    relaunched = launch_counts()
+    assert not any(relaunched.values()), relaunched
+    assert stats2["cache_misses"] == 0, stats2
+    assert all(_same_record(a, b) for a, b in zip(served, again))
+    keep = ("completed", "rejected", "batches", "requests_per_s", "p50_ms",
+            "p99_ms", "coalesce_factor", "cache_hits", "cache_misses",
+            "cache_hit_rate", "stragglers", "batch_ewma_s", "elapsed_s")
+    log("multitenant", json.dumps({
+        "leg": "optserver", "requests": len(reqs) + 1,
+        "kinds": dict(collections.Counter(q.kind + "/" + q.method
+                                          if q.kind == "solve" else q.kind
+                                          for q in reqs)),
+        "served_equals_solo_bitwise": True,
+        "solo_calls_s (host clock)": solo_s,
+        "stats (host clock)": {k: stats[k] for k in keep},
+        "launches": {k: v for k, v in counts.items() if v},
+        "malformed_request": "BadRequest on its own future",
+        "restart": {"store_entries_loaded": loaded,
+                    "cache_hits": stats2["cache_hits"],
+                    "cache_misses": stats2["cache_misses"],
+                    "kernel_launches": sum(relaunched.values()),
+                    "p50_ms (host clock)": stats2["p50_ms"]}}))
+
+    # (d) devices="sharded": the card listed once and three times.
+    flow = EvalOptions(congestion="flow", redistribution=True,
+                       async_exec=True)
+    rates = np.random.default_rng(0).uniform(48.0, 128.0, 5)
+    eval_pts = [sweep.EvalPoint(tasks["vit"], make_hw("A", 4, "hbm",
+                                                      bw_nop=b), o)
+                for o in (ga_opts, flow) for b in rates]
+    GB = 1e9
+    nets = [fig3_net(m, p, b * GB) for m in ("dram", "hbm")
+            for p in ("peripheral", "central") for b in (60, 120)]
+    rng = np.random.default_rng(1)
+    pipe_pts = [sweep.PipelinePoint(
+        [(f"op{i}", *rng.uniform(1e-6, 1e-4, 3)) for i in range(16)], 8)
+        for _ in range(5)]
+    lat_pts = [sweep.EvalPoint(tasks["alexnet"], make_hw("A", 4, "hbm",
+                                                         bw_nop=b))
+               for b in rates[:3]]
+    miqp_cfg = MIQPConfig(candidate_budget=4096, eval_budget=8192,
+                          backend="torch")
+    shard_ga = GAConfig(**SHARD_GA)
+    engines = {
+        "eval": lambda d: sweep.eval_sweep(eval_pts, cache=False,
+                                           devices=d),
+        "ga_islands": lambda d: sweep.solve_grid(
+            het_pts, "edp", shard_ga, backend="torch", cache=False,
+            devices=d),
+        "netsim": lambda d: sweep.netsim_sweep(nets, GB, cache=False,
+                                               devices=d),
+        "sgs": lambda d: sweep.pipeline_sweep(pipe_pts, cache=False,
+                                              devices=d),
+        "lattice": lambda d: sweep.solve_grid(
+            lat_pts, "latency", miqp_cfg, cache=False, method="miqp",
+            devices=d),
+    }
+    shard_log = {}
+    for name, run in engines.items():
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        single = run("single")
+        single_s = time.perf_counter() - t0
+        row = {"points": len(single), "single_s": single_s,
+               "single_launches": {k: v for k, v in launch_counts().items()
+                                   if v}}
+        for k in SHARD_MESHES:
+            reset_launch_counts()
+            with sweep_shard.use_mesh([torch.device("cuda", 0)] * k):
+                t0 = time.perf_counter()
+                out = run("sharded")
+                row[f"sharded_x{k}_s"] = time.perf_counter() - t0
+            counts = leg_counts(f"sharded_{name}_{k}")
+            row[f"sharded_x{k}_launches"] = {c: v for c, v in counts.items()
+                                             if v}
+            ok = all(_same_record(a, b) if not isinstance(a, dict)
+                     or "done" not in a else
+                     (a["latency"] == b["latency"]
+                      and np.array_equal(a["done"], b["done"])
+                      and np.array_equal(a["link_bytes"], b["link_bytes"]))
+                     for a, b in zip(single, out))
+            assert ok, (name, k)
+        shard_log[name] = row
+    log("multitenant", json.dumps({
+        "leg": "devices_sharded (host clock)",
+        "meshes": [f"cuda:0 x {k}" for k in SHARD_MESHES],
+        "bit_identical_to_single": True, **shard_log}))
+    assert not any(launch_counts()[k] for k in TPU_KERNELS)
+    log("multitenant", f"phase 9 in {time.perf_counter() - t_phase:.1f}s")
+    return dict(main_launches), contention
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -2236,8 +2661,11 @@ def main():
     launches.update(counts)
     counts, rows["netsim_waterfill"] = phase_flow()
     launches.update(counts)
-    log("flow", f"launches over the calibration pass, the three serve "
-        f"paths, the pipelining sweep and the flow legs: {dict(launches)}")
+    counts, _ = phase_multitenant()
+    launches.update(counts)
+    log("multitenant", f"launches over the calibration pass, the three "
+        f"serve paths, the pipelining sweep, the flow legs and phase 9: "
+        f"{dict(launches)}")
     kernels = [{
         "name": name, "route": "cuda", "source": src, "replaces": tpu,
         "launches": launches[name],

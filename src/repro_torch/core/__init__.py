@@ -20,7 +20,14 @@ package's numpy modules, with a float64 torch evaluator for the card:
   * :mod:`.sweep` — batched sweeps with result caching and checkpointed
     resume: evaluation, GA islands and MIQP lattice points
     (``solve_grid``), pipelining (``pipeline_sweep``), the netsim
-    (``netsim_sweep``).
+    (``netsim_sweep``), multi-tenant placement (``multitenant_sweep``);
+    :mod:`.sweep_shard` splits their grid axis across devices
+    (``devices="sharded"``, DESIGN.md §15).
+  * :mod:`.multitenant` — multi-tenant placement on one (possibly
+    heterogeneous) package (DESIGN.md §18): contiguous row-band tenant
+    regions, per-tenant inner solves through the engines, NoP
+    contention from the flow netsim (one waterfilling launch a solve on
+    the card).
   * :mod:`.ga` / :mod:`.miqp` — the two solvers (Sec. 6.2/6.3): the GA's
     python and vectorized numpy engines and its device engine
     (:mod:`.ga_torch`), the HiGHS MILP, and :mod:`.miqp_lattice`, the
@@ -34,17 +41,20 @@ from . import netsim, netsim_torch  # noqa: F401
 from .api import (ScheduleResult, baseline_result, optimize,  # noqa: F401
                   refine_schedule)
 from .evaluator import (AUTO_POPULATION_THRESHOLD, BACKENDS,  # noqa: F401
-                        CONGESTION_MODES, EvalOptions, EvalResult,
-                        Evaluator, resolve_auto_backend)
+                        CONGESTION_MODES, DEVICE_MODES, EvalOptions,
+                        EvalResult, Evaluator, resolve_auto_backend)
 from .ga import GAConfig, GAResult, run_ga  # noqa: F401
 from .hw import (TABLE2, ChipletClass, HWConfig, MCMType,  # noqa: F401
                  Topology, make_hw)
 from .miqp import (MIQPConfig, MIQPResult, resolve_auto_engine,  # noqa: F401
                    run_miqp)
+from .multitenant import (MultiTenantConfig,  # noqa: F401
+                          MultiTenantResult, solve_multitenant)
 from .pipelining import (PIPELINE_ENGINES, PipelineConfig,  # noqa: F401
                          PipelineResult, pipeline_batch,
                          resolve_auto_pipeline_engine)
-from .sweep import (EvalPoint, PipelinePoint, eval_sweep,  # noqa: F401
+from .sweep import (EvalPoint, MultiTenantPoint,  # noqa: F401
+                    PipelinePoint, eval_sweep, multitenant_sweep,
                     netsim_sweep, pipeline_sweep, solve_grid)
 from .workload import (GemmOp, Partition, Task,  # noqa: F401
                        clamp_partition_to_domain, partition_domain,

@@ -38,7 +38,8 @@ from .hw import HWConfig
 from .workload import Partition, Task
 
 __all__ = ["AUTO_POPULATION_THRESHOLD", "BACKENDS", "CONGESTION_MODES",
-           "EvalOptions", "EvalResult", "Evaluator", "resolve_auto_backend"]
+           "DEVICE_MODES", "EvalOptions", "EvalResult", "Evaluator",
+           "resolve_auto_backend"]
 
 
 #: Congestion models for the communication phases: "regime" = the
@@ -47,6 +48,15 @@ __all__ = ["AUTO_POPULATION_THRESHOLD", "BACKENDS", "CONGESTION_MODES",
 #: distribution/collection phases against link rates simulated by the
 #: max-min waterfilling netsim on the shared topology's flow network.
 CONGESTION_MODES = ("regime", "flow")
+
+#: Execution modes for the batched sweep calls (DESIGN.md §15):
+#: "single" = one device runs the whole grid group; "sharded" = the grid
+#: axis is split across devices (:mod:`.sweep_shard`); "auto" = sharded
+#: iff more than one card exists and the group has >= 2 points. Results
+#: are bitwise identical across modes (solo == batched == sharded), so
+#: the knob is purely a performance choice and is normalized out of
+#: every sweep-cache fingerprint.
+DEVICE_MODES = ("single", "sharded", "auto")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,6 +67,8 @@ class EvalOptions:
     async_exec: bool = False       # Sec. 5.3 fused comm+comp
     energy_mode: str = "paper"     # "paper" (eq. 4.4.1 verbatim) | "per_chiplet"
     congestion: str = "regime"     # "regime" (Sec. 4.3.3) | "flow" (netsim)
+    devices: str = "auto"          # sweep execution: "single"|"sharded"|
+                                   # "auto" (§15; result-neutral)
 
     def __post_init__(self):
         if self.energy_mode not in ("paper", "per_chiplet"):
@@ -64,6 +76,9 @@ class EvalOptions:
         if self.congestion not in CONGESTION_MODES:
             raise ValueError(f"bad congestion {self.congestion!r}; "
                              f"one of {CONGESTION_MODES}")
+        if self.devices not in DEVICE_MODES:
+            raise ValueError(f"bad devices {self.devices!r}; "
+                             f"one of {DEVICE_MODES}")
 
 
 @dataclasses.dataclass

@@ -43,6 +43,7 @@ count their launches.
 from __future__ import annotations
 
 import collections
+import functools
 from typing import Any, Dict
 
 import numpy as np
@@ -351,21 +352,44 @@ def evaluate_tensors(c: dict[str, torch.Tensor], opts: EvalOptions,
                          congestion=opts.congestion)
 
 
-def grid_evaluate(consts_stack: EvalConsts, opts: EvalOptions,
-                  Px, Py, collectors, redist, device=None
-                  ) -> dict[str, np.ndarray]:
-    """Grid-batched evaluation: every array carries a leading grid axis
-    (consts ``[G, ...]``, genomes ``[G, P, ...]``). Returns numpy float64
-    arrays with the numpy backend's keys, shaped ``[G, P]`` and
-    ``[G, P, n]``."""
+def _grid_tensors(consts_stack, Px, Py, collectors, redist, *,
+                  opts: EvalOptions, device) -> dict[str, torch.Tensor]:
+    """One device's grid-batched evaluation: uploads, then
+    :func:`evaluate_tensors`; results stay on ``device``."""
     dev = resolve_device(device)
     c = to_device(consts_stack, dev)
 
     def genome(a):
-        return upload(np.asarray(a, dtype=np.float64), dev)
+        return upload(np.asarray(a, dtype=np.float64)
+                      if not isinstance(a, torch.Tensor) else a, dev)
 
-    out = evaluate_tensors(c, opts, genome(Px), genome(Py),
-                           genome(collectors), genome(redist))
+    return evaluate_tensors(c, opts, genome(Px), genome(Py),
+                            genome(collectors), genome(redist))
+
+
+def grid_evaluate(consts_stack: EvalConsts, opts: EvalOptions,
+                  Px, Py, collectors, redist, device=None,
+                  devices: str | None = "single"
+                  ) -> dict[str, np.ndarray]:
+    """Grid-batched evaluation: every array carries a leading grid axis
+    (consts ``[G, ...]``, genomes ``[G, P, ...]``). Returns numpy float64
+    arrays with the numpy backend's keys, shaped ``[G, P]`` and
+    ``[G, P, n]``.
+
+    ``devices`` (DESIGN.md §15) splits the grid axis over the mesh of
+    :mod:`.sweep_shard` (``grid_mesh(device)``); outputs are bitwise
+    identical to the single-device call."""
+    from . import sweep_shard
+
+    G = int(np.shape(Px)[0])
+    if sweep_shard.resolve_devices(devices, G) == "sharded":
+        out = sweep_shard.sharded_grid_call(
+            functools.partial(_grid_tensors, opts=opts),
+            (consts_stack, Px, Py, collectors, redist), (True,) * 5, G,
+            mesh=sweep_shard.grid_mesh(device))
+    else:
+        out = _grid_tensors(consts_stack, Px, Py, collectors, redist,
+                            opts=opts, device=device)
     return {k: v.cpu().numpy() for k, v in out.items()}
 
 

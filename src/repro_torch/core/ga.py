@@ -41,6 +41,7 @@ import dataclasses
 
 import numpy as np
 
+from .evaluator import DEVICE_MODES  # noqa: F401 (re-exported)
 from .evaluator import EvalOptions, Evaluator, resolve_auto_backend
 from .hw import HWConfig
 from .workload import (Partition, Task, clamp_partition_to_domain,
@@ -49,10 +50,6 @@ from .workload import (Partition, Task, clamp_partition_to_domain,
 __all__ = ["DEVICE_MODES", "ENGINES", "GAConfig", "GAResult", "run_ga"]
 
 ENGINES = ("python", "vectorized")
-
-#: Island-axis execution of the device engine: "single" and "auto" run
-#: every island on the one card; "sharded" raises until ROADMAP.md A.4.
-DEVICE_MODES = ("single", "sharded", "auto")
 
 #: Attempts per rejection-sampled unit move (every engine).
 MOVE_ATTEMPTS = 4
@@ -79,10 +76,9 @@ class GAConfig:
     engine: str = "python"       # evolution engine: "python" | "vectorized"
                                  # (DESIGN.md §10)
     devices: str = "auto"        # island-axis execution of the device
-                                 # engine: "single" | "auto" (the one
-                                 # card); "sharded" raises (ROADMAP A.4).
-                                 # Result-neutral: never part of a cache
-                                 # fingerprint
+                                 # engine: "single" | "sharded" | "auto"
+                                 # (§15). Result-neutral: never part of
+                                 # a cache fingerprint
 
 
 @dataclasses.dataclass

@@ -47,6 +47,7 @@ without one; ``"cpu"`` runs the same code on the host).
 """
 from __future__ import annotations
 
+import functools
 from typing import Sequence
 
 import numpy as np
@@ -55,7 +56,7 @@ import torch
 from ..device import resolve_device
 from . import evaluator_torch
 from .evaluator import EvalOptions, Evaluator
-from .ga import DEVICE_MODES, MOVE_ATTEMPTS
+from .ga import MOVE_ATTEMPTS
 from .hw import HWConfig
 from .workload import Partition, Task, partition_domain
 
@@ -206,75 +207,23 @@ def _initial_population(tasks, hws, cfg, pop, seeds):
     return inits
 
 
-def solve_islands(
-    tasks: Sequence[Task],
-    hws: Sequence[HWConfig],
-    options: EvalOptions,
-    objective: str,
-    cfg,
-    devices: str | None = None,
-    seeds: Sequence[Sequence[Partition]] | None = None,
-) -> list:
-    """Evolve one GA search per (task, hw) island through one batched
-    generation step on ``cfg.device``. All islands must share a shape
-    signature (n_ops, X, Y, n_entrances) — :func:`.sweep.solve_grid`
-    does the grouping. Returns one :class:`.ga.GAResult` per island,
-    aligned with the inputs.
-
-    ``devices`` (default: ``cfg.devices``): ``"single"`` and ``"auto"``
-    run every island on the one card; ``"sharded"`` raises until
-    ROADMAP.md A.4.
-
-    ``seeds`` (optional, per island) warm-starts the search: island
-    ``g``'s population rows ``1..`` are overwritten with the given
-    :class:`Partition` proposals (row 0 keeps the uniform baseline, so a
-    seeded run can never start worse than a cold one). Collector /
-    redistribution genes of a seeded row keep their initial values —
-    seeds speak only to the partition lattice. ``seeds=None`` keeps the
-    cold-start init bit for bit."""
-    from .ga import GAResult
-
-    if objective not in OBJECTIVES:
-        raise ValueError(f"unknown objective {objective!r}; "
-                         f"one of {OBJECTIVES}")
-    devices = cfg.devices if devices is None else devices
-    if devices not in DEVICE_MODES:
-        raise ValueError(f"bad devices {devices!r}; one of {DEVICE_MODES}")
-    if devices == "sharded":
-        raise NotImplementedError(
-            "GAConfig(devices='sharded') needs the port's sweep sharding "
-            "(ROADMAP.md A.4); use 'single' or 'auto'")
-    G = len(tasks)
-    assert G == len(hws) and G > 0
-    dev = resolve_device(cfg.device)
-    pop = cfg.population
-    elite = min(cfg.elite, pop - 1)
-    n = len(tasks[0])
-    X, Y = hws[0].X, hws[0].Y
-
-    evs = [Evaluator(t, h, options, backend="numpy")
-           for t, h in zip(tasks, hws)]
-    keys0 = evs[0].consts().keys()
-    consts = evaluator_torch.to_device(
-        {k: np.stack([ev.consts()[k] for ev in evs]) for k in keys0}, dev)
-    inits = _initial_population(tasks, hws, cfg, pop, seeds)
-    win = {"lo_x": [], "hi_x": [], "lo_y": [], "hi_y": []}
-    for t, h in zip(tasks, hws):
-        lo, hi = partition_domain(t, h.X, h.Y, h.R, h.C, cfg.slack)
-        win["lo_x"].append(lo[:, 0])
-        win["hi_x"].append(hi[:, 0])
-        win["lo_y"].append(lo[:, 1])
-        win["hi_y"].append(hi[:, 1])
-    win = {k: evaluator_torch.upload(np.stack(v).astype(np.float64), dev)
-           for k, v in win.items()}
-
-    def stacked(i):
-        return evaluator_torch.upload(
-            np.stack([init[i] for init in inits]).astype(np.float64), dev)
-
-    carry = {
-        "Px": stacked(0), "Py": stacked(1), "co": stacked(2),
-        "rd": stacked(3),
+def _evolve(consts, win, Px0, Py0, co0, rd0, *, cfg, options, objective,
+            elite, device) -> dict[str, np.ndarray]:
+    """Evolve the islands of one device: constants and unit windows
+    ``[G, ...]`` and the initial population ``[G, P, ...]`` (float64) →
+    numpy arrays ``steps [G]``, ``best_obj [G]``, the best
+    genomes ``bPx [G, n, X]``, ``bPy [G, n, Y]``, ``bco``/``brd [G, n]``
+    and the best-objective history ``hist [G, cfg.generations]`` (NaN
+    past the last generation run). The host waits for the device once a
+    chunk, for one packed copy."""
+    dev = resolve_device(device)
+    consts = evaluator_torch.to_device(consts, dev)
+    win = {k: evaluator_torch.upload(v, dev) for k, v in win.items()}
+    carry = {k: evaluator_torch.upload(a, dev) for k, a in
+             (("Px", Px0), ("Py", Py0), ("co", co0), ("rd", rd0))}
+    G, _, n, X = carry["Px"].shape
+    Y = carry["Py"].shape[3]
+    carry.update({
         "best_obj": torch.full((G,), float("inf"), dtype=_F8, device=dev),
         "bPx": torch.zeros((G, n, X), dtype=_F8, device=dev),
         "bPy": torch.zeros((G, n, Y), dtype=_F8, device=dev),
@@ -282,7 +231,7 @@ def solve_islands(
         "brd": torch.zeros((G, n), dtype=_F8, device=dev),
         "flat": torch.zeros((G,), dtype=torch.int64, device=dev),
         "steps": torch.zeros((G,), dtype=torch.int64, device=dev),
-    }
+    })
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(cfg.seed))
 
@@ -315,24 +264,96 @@ def solve_islands(
     sizes = (G, G, G * n * X, G * n * Y, G * n, G * n)
     steps, best_obj, bPx, bPy, bco, brd = np.split(
         tail, np.cumsum(sizes)[:-1])
-    bPx, bPy = bPx.reshape(G, n, X), bPy.reshape(G, n, Y)
-    bco, brd = bco.reshape(G, n), brd.reshape(G, n)
-    best_all = np.concatenate(best_hist, axis=1)          # [G, T]
+    hist = np.full((G, int(cfg.generations)), np.nan)
+    ran = np.concatenate(best_hist, axis=1)               # [G, T]
+    hist[:, :ran.shape[1]] = ran
+    return {"steps": steps, "best_obj": best_obj,
+            "bPx": bPx.reshape(G, n, X), "bPy": bPy.reshape(G, n, Y),
+            "bco": bco.reshape(G, n), "brd": brd.reshape(G, n),
+            "hist": hist}
+
+
+def solve_islands(
+    tasks: Sequence[Task],
+    hws: Sequence[HWConfig],
+    options: EvalOptions,
+    objective: str,
+    cfg,
+    devices: str | None = None,
+    seeds: Sequence[Sequence[Partition]] | None = None,
+) -> list:
+    """Evolve one GA search per (task, hw) island through one batched
+    generation step on ``cfg.device``. All islands must share a shape
+    signature (n_ops, X, Y, n_entrances) — :func:`.sweep.solve_grid`
+    does the grouping. Returns one :class:`.ga.GAResult` per island,
+    aligned with the inputs.
+
+    ``devices`` (default: ``cfg.devices``; DESIGN.md §15) splits the
+    island axis over the mesh of :mod:`.sweep_shard`
+    (``grid_mesh(cfg.device)``): each shard evolves on its own device
+    with its own generator seeded by ``cfg.seed``, and since the draws
+    are shaped without the island axis every island's record is bitwise
+    the single-device one.
+
+    ``seeds`` (optional, per island) warm-starts the search: island
+    ``g``'s population rows ``1..`` are overwritten with the given
+    :class:`Partition` proposals (row 0 keeps the uniform baseline, so a
+    seeded run can never start worse than a cold one). Collector /
+    redistribution genes of a seeded row keep their initial values —
+    seeds speak only to the partition lattice. ``seeds=None`` keeps the
+    cold-start init bit for bit."""
+    from . import sweep_shard
+    from .ga import GAResult
+
+    if objective not in OBJECTIVES:
+        raise ValueError(f"unknown objective {objective!r}; "
+                         f"one of {OBJECTIVES}")
+    devices = cfg.devices if devices is None else devices
+    G = len(tasks)
+    assert G == len(hws) and G > 0
+    mode = sweep_shard.resolve_devices(devices, G)
+    resolve_device(cfg.device)
+    pop = cfg.population
+    elite = min(cfg.elite, pop - 1)
+
+    evs = [Evaluator(t, h, options, backend="numpy")
+           for t, h in zip(tasks, hws)]
+    keys0 = evs[0].consts().keys()
+    consts = {k: np.stack([ev.consts()[k] for ev in evs]) for k in keys0}
+    inits = _initial_population(tasks, hws, cfg, pop, seeds)
+    win = {"lo_x": [], "hi_x": [], "lo_y": [], "hi_y": []}
+    for t, h in zip(tasks, hws):
+        lo, hi = partition_domain(t, h.X, h.Y, h.R, h.C, cfg.slack)
+        win["lo_x"].append(lo[:, 0])
+        win["hi_x"].append(hi[:, 0])
+        win["lo_y"].append(lo[:, 1])
+        win["hi_y"].append(hi[:, 1])
+    win = {k: np.stack(v).astype(np.float64) for k, v in win.items()}
+    pop0 = tuple(np.stack([init[i] for init in inits]).astype(np.float64)
+                 for i in range(4))
+    evolve = functools.partial(_evolve, cfg=cfg, options=options,
+                               objective=objective, elite=elite)
+    if mode == "sharded":
+        out = sweep_shard.sharded_grid_call(
+            evolve, (consts, win) + pop0, (True,) * 6, G,
+            mesh=sweep_shard.grid_mesh(cfg.device))
+    else:
+        out = evolve(consts, win, *pop0, device=cfg.device)
 
     results = []
     for g in range(G):
         # steps[g] = generations actually evaluated; frozen tail steps of
         # the last chunk repeat the final state and are dropped.
-        T = int(steps[g])
-        part = Partition(np.rint(bPx[g]).astype(np.int64),
-                         np.rint(bPy[g]).astype(np.int64),
-                         np.rint(bco[g]).astype(np.int64))
+        T = int(out["steps"][g])
+        part = Partition(np.rint(out["bPx"][g]).astype(np.int64),
+                         np.rint(out["bPy"][g]).astype(np.int64),
+                         np.rint(out["bco"][g]).astype(np.int64))
         part.validate(tasks[g])
         results.append(GAResult(
             partition=part,
-            redist_mask=(brd[g] > 0.5) & evs[g].chain_valid,
-            objective=float(best_obj[g]),
-            history=best_all[g, :T].copy(),
+            redist_mask=(out["brd"][g] > 0.5) & evs[g].chain_valid,
+            objective=float(out["best_obj"][g]),
+            history=out["hist"][g, :T].copy(),
             evaluations=T * pop,
         ))
     return results

@@ -48,9 +48,7 @@ Two solver *engines* sit behind :func:`run_miqp` (DESIGN.md §12):
     (``benchmarks/artifacts/miqp_solve.json``); select ``"milp"``
     explicitly when you need HiGHS's optimality certificate.
 
-The port's copy of the JAX package's ``core/miqp.py``. Its
-``MIQPConfig.devices`` keeps ``"auto"`` and ``"single"`` (the one card);
-``"sharded"`` comes with the port's sweep sharding (ROADMAP.md, A.4).
+The port's copy of the JAX package's ``core/miqp.py``.
 """
 from __future__ import annotations
 
@@ -60,6 +58,7 @@ import numpy as np
 import scipy.sparse as sp
 from scipy.optimize import Bounds, LinearConstraint, milp
 
+from .evaluator import DEVICE_MODES  # noqa: F401 (re-exported)
 from .evaluator import EvalOptions, Evaluator
 from .hw import HWConfig, MCMType
 from .workload import (Partition, Task, partition_domain,
@@ -72,11 +71,6 @@ _SCALE = 1e6  # model time in microseconds (paper trick #1: constant scaling)
 
 #: Solver engines behind :func:`run_miqp` (DESIGN.md §12).
 ENGINES = ("milp", "lattice", "auto")
-
-#: Grid-axis execution of the lattice's scoring calls: "single" and
-#: "auto" run them on the one device; "sharded" (the JAX package's
-#: shard_map across devices) raises until ROADMAP.md A.4.
-DEVICE_MODES = ("single", "sharded", "auto")
 
 
 def approx_inverse(c, x):
@@ -128,9 +122,8 @@ class MIQPConfig:
     max_layer_candidates: int = 1024  # per-op (rows × cols) cap
     score_chunk: int = 2048       # fixed scoring-chunk shape (compile key)
     devices: str = "auto"         # grid-axis execution of the chunked
-                                  # scoring calls: "single" | "auto" (the
-                                  # one device); "sharded" raises
-                                  # (ROADMAP.md A.4)
+                                  # scoring calls: "single" | "sharded" |
+                                  # "auto" (§15; result-neutral)
 
 
 @dataclasses.dataclass

@@ -332,13 +332,15 @@ class _GroupScorer:
     bucketed to powers of two)."""
 
     def __init__(self, tasks, hws, spaces, options: EvalOptions,
-                 objective: str, backend: str, chunk: int, device=None):
+                 objective: str, backend: str, chunk: int, device=None,
+                 devices: str = "single"):
         self.spaces = spaces
         self.options = options
         self.objective = objective
         self.backend = backend
         self.chunk = chunk
         self.device = device
+        self.devices = devices
         self.evals = 0
         self.evs = [Evaluator(t, h, options, backend="numpy")
                     for t, h in zip(tasks, hws)]
@@ -368,7 +370,7 @@ class _GroupScorer:
 
             vals = evaluator_torch.grid_evaluate(
                 self._stacked, self.options, Px, Py, co, rd, self.device,
-            )[self.objective]
+                devices=self.devices)[self.objective]
         else:
             vals = np.stack([
                 self.evs[g].evaluate_batch(Px[g], Py[g], co[g],
@@ -719,10 +721,6 @@ def solve_lattice_batch(
     if cfg.devices not in DEVICE_MODES:
         raise ValueError(f"bad devices {cfg.devices!r}; "
                          f"one of {DEVICE_MODES}")
-    if cfg.devices == "sharded":
-        raise NotImplementedError(
-            "MIQPConfig(devices='sharded') needs the port's sweep "
-            "sharding (ROADMAP.md A.4); use 'single' or 'auto'")
     backend = resolve_auto_backend(cfg.backend, cfg.score_chunk)
     n = len(tasks[0])
     spaces = [_Space(t, h, cfg) for t, h in zip(tasks, hws)]
@@ -747,7 +745,7 @@ def solve_lattice_batch(
         scorer = _GroupScorer([tasks[g] for g in idxs],
                               [hws[g] for g in idxs], sub, options,
                               objective, backend, cfg.score_chunk,
-                              device=cfg.device)
+                              device=cfg.device, devices=cfg.devices)
         if mode == "exact":
             best_a, best = _solve_exact(sub, scorer)
         else:

@@ -57,25 +57,8 @@ def waterfill_times(cap: torch.Tensor, inc: torch.Tensor,
     return t[0, 0], done[0, 0], lb[0, 0]
 
 
-def _check_devices(devices: str) -> None:
-    if devices == "sharded":
-        raise NotImplementedError(
-            "devices='sharded' needs the port's sweep sharding "
-            "(ROADMAP.md A.4); use 'single' or 'auto'")
-    if devices not in ("single", "auto"):
-        raise ValueError(f"bad devices {devices!r}; one of "
-                         f"('single', 'sharded', 'auto')")
-
-
-def simulate_pull_batch(caps, incs, msgs, device=None,
-                        devices: str = "single") -> dict[str, np.ndarray]:
-    """Batched flow simulation: ``caps [G, L]``, ``incs [G, F, L]``,
-    ``msgs [G, F]`` (numpy or tensors) → dict of numpy float64 arrays
-    (``latency [G]``, ``done [G, F]``, ``link_bytes [G, L]``). On the
-    card the whole grid is one kernel launch. ``devices`` is the §15
-    knob: ``"single"`` and ``"auto"`` mean the one card; ``"sharded"``
-    raises until ROADMAP.md A.4."""
-    _check_devices(devices)
+def _pull_batch(caps, incs, msgs, *, device) -> dict[str, torch.Tensor]:
+    """One device's batched simulation; results stay on ``device``."""
     dev = resolve_device(device)
 
     def f8(a):
@@ -88,6 +71,27 @@ def simulate_pull_batch(caps, incs, msgs, device=None,
         inc, routes = f8(incs), None
     t, done, lb, _ = ops.waterfill(f8(caps), inc, f8(msgs)[:, None],
                                    routes=routes)
-    return {"latency": t[:, 0].cpu().numpy(),
-            "done": done[:, 0].cpu().numpy(),
-            "link_bytes": lb[:, 0].cpu().numpy()}
+    return {"latency": t[:, 0], "done": done[:, 0],
+            "link_bytes": lb[:, 0]}
+
+
+def simulate_pull_batch(caps, incs, msgs, device=None,
+                        devices: str | None = "single"
+                        ) -> dict[str, np.ndarray]:
+    """Batched flow simulation: ``caps [G, L]``, ``incs [G, F, L]``,
+    ``msgs [G, F]`` (numpy or tensors) → dict of numpy float64 arrays
+    (``latency [G]``, ``done [G, F]``, ``link_bytes [G, L]``). On the
+    card the whole grid is one kernel launch. ``devices`` (DESIGN.md
+    §15) splits the grid axis over the mesh of :mod:`.sweep_shard`
+    (``grid_mesh(device)``), one launch a shard, with bitwise the
+    single-device records."""
+    from . import sweep_shard
+
+    G = int(np.shape(caps)[0])
+    if sweep_shard.resolve_devices(devices, G) == "sharded":
+        out = sweep_shard.sharded_grid_call(
+            _pull_batch, (caps, incs, msgs), (True, True, True), G,
+            mesh=sweep_shard.grid_mesh(device))
+    else:
+        out = _pull_batch(caps, incs, msgs, device=device)
+    return {k: v.cpu().numpy() for k, v in out.items()}

@@ -81,8 +81,7 @@ class PipelineConfig:
     n_buckets: int = 64        # milp time-bucket count
     time_limit: float = 30.0   # milp wall-clock budget (seconds)
     devices: str = "auto"      # grid-axis execution of batched schedules:
-                               # "single" | "auto" (the one card);
-                               # "sharded" raises (ROADMAP.md A.4).
+                               # "single" | "sharded" | "auto" (§15).
                                # Result-neutral — never part of a cache
                                # fingerprint
     device: str | None = None  # torch device (None: the card)

@@ -31,6 +31,8 @@ for bit — the contract is *bit-identical* makespans and start times.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -41,10 +43,11 @@ from .pipelining import chain_priorities
 __all__ = ["schedule_batch", "sgs_instance"]
 
 
-def _sgs(dur: np.ndarray, batch: int, dev: torch.device):
-    """``dur [G, L]`` (clamped) → device ``(makespan [G], starts [G,
-    batch, L])`` through the op, priorities from the host."""
-    prio = np.stack([chain_priorities(d) for d in dur])
+def _sgs(dur, prio, *, batch: int, device):
+    """``dur [G, L]`` (clamped) and its chain priorities ``prio [G, L]``
+    → device ``(makespan [G], starts [G, batch, L])`` through the op on
+    ``device``."""
+    dev = resolve_device(device)
     to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
     return ops.sgs_batch(to(dur), to(prio), int(batch))
 
@@ -58,21 +61,33 @@ def sgs_instance(dur, batch: int, device=None) -> tuple[float, np.ndarray]:
     return float(out["makespan"][0]), out["starts"][0]
 
 
-def schedule_batch(segments_grid: np.ndarray, batch: int, device=None
+def schedule_batch(segments_grid: np.ndarray, batch: int, device=None,
+                   devices: str | None = "single"
                    ) -> dict[str, np.ndarray]:
     """Batched list scheduling: ``segments_grid [G, n, 3]`` per-op
     (t_in, t_comp, t_out) durations for ``G`` same-shape grid points →
     ``{"makespan": [G], "starts": [G, batch, 3n]}`` (``starts[g, s, p]``
     = start of sample ``s``'s p-th chain job, jid ``s*3n + p`` in
     :func:`.pipelining.build_jobs` order). One call of the batched SGS
-    on ``device`` covers the whole group."""
+    on ``device`` covers the whole group; ``devices`` (DESIGN.md §15)
+    splits the grid axis over the mesh of :mod:`.sweep_shard`
+    (``grid_mesh(device)``), one call a shard, with bit-identical
+    schedules."""
+    from . import sweep_shard
+
     seg = np.asarray(segments_grid, dtype=np.float64)
     G, n = seg.shape[0], seg.shape[1]
     L = 3 * n
     dur = np.maximum(seg.reshape(G, L) if L else np.zeros((G, 0)), 0.0)
-    dev = resolve_device(device)
+    resolve_device(device)
     if L == 0 or batch == 0:
         return {"makespan": np.zeros(G), "starts": np.zeros((G, batch, L))}
-    makespan, starts = _sgs(dur, batch, dev)
+    prio = np.stack([chain_priorities(d) for d in dur])
+    if sweep_shard.resolve_devices(devices, G) == "sharded":
+        makespan, starts = sweep_shard.sharded_grid_call(
+            functools.partial(_sgs, batch=batch), (dur, prio),
+            (True, True), G, mesh=sweep_shard.grid_mesh(device))
+    else:
+        makespan, starts = _sgs(dur, prio, batch=batch, device=device)
     return {"makespan": makespan.cpu().numpy(),
             "starts": starts.cpu().numpy()}

@@ -31,6 +31,10 @@ This module turns those hand-rolled Python loops into:
     same-mesh-shape nets run through one
     :func:`.netsim_torch.simulate_pull_batch` call (one launch of the
     hand-written waterfilling kernel on the card), with cached records;
+  * :class:`MultiTenantPoint` / :func:`multitenant_sweep` — multi-tenant
+    placement (DESIGN.md §18): several tasks on one package, searched
+    by :func:`.multitenant.solve_multitenant`, also reachable as
+    ``solve_grid(method="multitenant")``;
   * a process-wide result cache keyed by content fingerprints (backend +
     task ops + HWConfig + options + partition bytes for evaluation
     records; + objective and the full solver config — GAConfig or
@@ -46,10 +50,11 @@ This module turns those hand-rolled Python loops into:
 
 Two execution knobs ride on every sweep (DESIGN.md §15):
 
-  * ``devices`` — ``"single" | "auto"`` run each batched group on the
-    one device; ``"sharded"`` (the JAX package's shard_map across
-    devices) raises until ROADMAP.md A.4. The knob is result-neutral,
-    so it is normalized out of every fingerprint (:func:`_strip_devices`);
+  * ``devices`` — ``"single" | "sharded" | "auto"`` splits each batched
+    group's grid axis across a mesh of devices (:mod:`.sweep_shard`).
+    Sharding is *result-neutral*: solo == batched == sharded bit for
+    bit, so the knob is normalized out of every fingerprint
+    (:func:`_strip_devices`) and one cache serves every mode;
   * ``checkpoint`` — a store path (or :class:`SweepCheckpointer`) makes
     the sweep persist its new cache records every ``checkpoint_every``
     points through :class:`repro_torch.serve.cache_store.CacheStore`.
@@ -59,8 +64,7 @@ Two execution knobs ride on every sweep (DESIGN.md §15):
     seconds) -> bool``; a chunk it flags is reported on stderr.
 
 The torch paths run on ``device`` (``None``: the card, raising without
-one). The JAX package's co-search and multi-tenant sweeps come with
-ROADMAP.md A.5 and A.4.
+one). The JAX package's co-search sweep comes with ROADMAP.md A.5.
 
 Typical use (LS baselines for one figure)::
 
@@ -79,18 +83,20 @@ from typing import Any, Callable, Iterable, Sequence
 import numpy as np
 
 from ..device import resolve_device
-from .evaluator import EvalOptions, Evaluator
+from .evaluator import DEVICE_MODES, EvalOptions, Evaluator
 from .hw import HWConfig
 from .workload import Partition, Task, uniform_partition
 
 __all__ = [
     "EvalPoint",
+    "MultiTenantPoint",
     "PipelinePoint",
     "eval_sweep",
     "grid",
     "run_grid",
     "solve_grid",
     "netsim_sweep",
+    "multitenant_sweep",
     "pipeline_sweep",
     "clear_cache",
     "cache_stats",
@@ -186,18 +192,11 @@ def _task_fingerprint(task: Task) -> tuple:
     return (task.name, tuple(task.ops))
 
 
-_DEVICE_MODES = ("single", "sharded", "auto")
-
-
 def _check_devices(devices) -> None:
-    """The §15 ``devices`` knob: ``None``, ``"single"`` and ``"auto"``
-    mean the one device; ``"sharded"`` raises until ROADMAP.md A.4."""
-    if devices is not None and devices not in _DEVICE_MODES:
-        raise ValueError(f"bad devices {devices!r}; one of {_DEVICE_MODES}")
-    if devices == "sharded":
-        raise NotImplementedError(
-            "devices='sharded' needs the port's sweep sharding "
-            "(ROADMAP.md A.4); use 'single' or 'auto'")
+    """The §15 ``devices`` knob: ``None`` (defer to the point's options
+    or the config) or one of :data:`.evaluator.DEVICE_MODES`."""
+    if devices is not None and devices not in DEVICE_MODES:
+        raise ValueError(f"bad devices {devices!r}; one of {DEVICE_MODES}")
 
 
 def _strip_devices(obj):
@@ -437,8 +436,10 @@ def eval_sweep(
     evaluated in one call (consts and genomes stacked on a leading grid
     axis). Numpy backend: per-point reference loop — same records.
 
-    ``devices`` is the §15 knob (module docstring). ``checkpoint`` (a
-    store path or :class:`SweepCheckpointer`) persists records every
+    ``devices`` (DESIGN.md §15) splits each group's grid axis across
+    devices — result-neutral, see the module docstring; ``None`` defers
+    to each group's ``options.devices``. ``checkpoint`` (a store path or
+    :class:`SweepCheckpointer`) persists records every
     ``checkpoint_every`` points for kill/resume; requires ``cache=True``.
     """
     if backend not in ("numpy", "torch"):
@@ -482,7 +483,9 @@ def eval_sweep(
             co = np.stack([g[2] for g in genomes])[:, None]
             rd = np.stack([g[3] for g in genomes])[:, None]
             out = evaluator_torch.grid_evaluate(
-                stacked, points[idxs[0]].options, Px, Py, co, rd, device)
+                stacked, points[idxs[0]].options, Px, Py, co, rd, device,
+                devices=(points[idxs[0]].options.devices
+                         if devices is None else devices))
             for g, i in enumerate(idxs):
                 records[i] = _record(points[i], out, (g, 0))
 
@@ -580,8 +583,9 @@ def netsim_sweep(
             caps = np.stack([nets[i].link_caps() for i in idxs])
             incs = np.stack([nets[i].pull_incidence() for i in idxs])
             msgs = np.full((len(idxs), X * Y), float(message_bytes))
-            out = netsim_torch.simulate_pull_batch(caps, incs, msgs,
-                                                   device=device)
+            out = netsim_torch.simulate_pull_batch(
+                caps, incs, msgs, device=device,
+                devices="auto" if devices is None else devices)
             for g, i in enumerate(idxs):
                 records[i] = {"latency": float(out["latency"][g]),
                               "done": out["done"][g],
@@ -618,10 +622,13 @@ def _solver_fingerprint(pt: EvalPoint, method: str, backend,
 def _copy_solver_record(rec):
     from .ga import GAResult
     from .miqp import MIQPResult
+    from .multitenant import MultiTenantResult
     from .pipelining import PipelineResult
 
     if isinstance(rec, PipelineResult):
         return dataclasses.replace(rec)   # all fields immutable scalars
+    if isinstance(rec, MultiTenantResult):
+        return rec.copy()
     if isinstance(rec, MIQPResult):
         return MIQPResult(
             partition=rec.partition.copy(),
@@ -679,19 +686,24 @@ def solve_grid(
     ``method="miqp"`` with ``engine="milp"`` cannot batch — those points
     run serially through :func:`.miqp.run_miqp` (still cached).
 
+    ``method="multitenant"`` takes :class:`MultiTenantPoint` points and
+    routes to :func:`multitenant_sweep`.
+
     ``device`` (``None``: the config's) is where the torch backend runs.
     ``devices`` / ``checkpoint`` / ``straggler`` follow the §15 contract
     (module docstring); ``devices=None`` defers to ``cfg.devices``.
-    The JAX package's ``method="cosearch"`` and ``"multitenant"`` come
-    with ROADMAP.md A.5 and A.4."""
+    The JAX package's ``method="cosearch"`` comes with ROADMAP.md A.5."""
     if method == "cosearch":
         raise NotImplementedError(
             "solve_grid(method='cosearch') needs the port's co-search "
             "(ROADMAP.md A.5)")
+    _check_devices(devices)
     if method == "multitenant":
-        raise NotImplementedError(
-            "solve_grid(method='multitenant') needs the port's "
-            "multi-tenant packages (ROADMAP.md A.4)")
+        return multitenant_sweep(points, objective=objective, cfg=cfg,
+                                 backend=backend, cache=cache,
+                                 devices=devices, checkpoint=checkpoint,
+                                 checkpoint_every=checkpoint_every,
+                                 straggler=straggler, device=device)
     if method not in ("ga", "miqp"):
         raise ValueError(f"unknown method {method!r}; "
                          f"one of ('ga', 'miqp', 'cosearch', "
@@ -806,6 +818,109 @@ def _solve_grid_miqp(points, objective, cfg, backend, cache,
     return records
 
 
+# ---------------------------------------------- multi-tenant placement
+@dataclasses.dataclass
+class MultiTenantPoint:
+    """One grid point of the multi-tenant placement sweep (DESIGN.md
+    §18): several co-resident tasks on ONE (possibly heterogeneous)
+    package, searched by ``solve_grid(method="multitenant")``."""
+
+    tasks: tuple
+    hw: HWConfig
+    options: EvalOptions = EvalOptions()
+
+
+def _multitenant_fingerprint(pt: MultiTenantPoint, backend,
+                             objective: str, cfg) -> tuple:
+    """Cache key for a multi-tenant search: tenant task tuple (order
+    matters — bands are assigned in tenant order), the full hetero
+    HWConfig, and the frozen config with the execution knobs stripped at
+    both levels (the outer config and the nested inner-solver config).
+    ``backend`` is ``"numpy"`` or ``("torch", device type)``
+    (:func:`_backend_key`)."""
+    inner = _strip_devices(cfg.cfg)
+    return (
+        "multitenant", backend,
+        tuple(_task_fingerprint(t) for t in pt.tasks),
+        pt.hw,
+        _strip_devices(pt.options),
+        objective,
+        _strip_devices(dataclasses.replace(cfg, cfg=inner)),
+    )
+
+
+def multitenant_sweep(
+    points: Sequence[MultiTenantPoint],
+    objective: str = "edp",
+    cfg=None,
+    backend: str = "torch",
+    cache: bool = True,
+    devices: str | None = None,
+    checkpoint=None,
+    checkpoint_every: int = 8,
+    straggler=None,
+    device=None,
+) -> list:
+    """Run one multi-tenant placement search per point; returns
+    :class:`.multitenant.MultiTenantResult` records aligned with
+    ``points`` — also reachable as ``solve_grid(method="multitenant")``
+    (DESIGN.md §18).
+
+    The outer assignment loop is a host loop (band compositions are
+    few); the inner per-tenant solves and exact re-scores go through
+    :func:`solve_grid` / :func:`eval_sweep`, so they batch per region
+    shape and share the process cache — identical region solves across
+    assignments (and across points) dedupe to one engine call. On the
+    torch backend every contention simulation of a point is one
+    waterfilling launch. All budgets are deterministic counts, so
+    records obey the §9 solo == batched == served contract.
+
+    ``backend="auto"`` resolves to torch; ``device`` (``None``: the
+    card) is where the torch backend runs. ``checkpoint`` / ``straggler``
+    follow the §15 contract; ``devices`` threads through to the inner
+    engines and is fingerprint-invisible."""
+    from .multitenant import MultiTenantConfig, solve_multitenant
+
+    if cfg is None:
+        cfg = MultiTenantConfig()
+    if not isinstance(cfg, MultiTenantConfig):
+        raise TypeError(f"multitenant_sweep needs a MultiTenantConfig, "
+                        f"got {type(cfg).__name__}")
+    if backend == "auto":
+        backend = "torch"
+    if backend not in ("numpy", "torch"):
+        raise ValueError(f"unknown backend {backend!r}; "
+                         f"one of ('numpy', 'torch', 'auto')")
+    _check_devices(devices)
+    if checkpoint is not None:
+        return _checkpointed(
+            points, checkpoint, checkpoint_every, cache, straggler,
+            lambda c: multitenant_sweep(c, objective, cfg,
+                                        backend=backend, cache=True,
+                                        devices=devices, device=device))
+    key = _backend_key(backend, device)
+    records: list = [None] * len(points)
+    todo: list[int] = []
+    fps: list[tuple | None] = [None] * len(points)
+    for i, pt in enumerate(points):
+        if cache:
+            _lookup(fps, records, todo, i,
+                    _multitenant_fingerprint(pt, key, objective, cfg))
+        else:
+            todo.append(i)
+
+    for i in todo:
+        pt = points[i]
+        records[i] = solve_multitenant(
+            pt.tasks, pt.hw, objective, pt.options, cfg,
+            backend=backend, cache=cache, devices=devices, device=device)
+
+    if cache:
+        for i in todo:
+            _CACHE[fps[i]] = _copy_solver_record(records[i])
+    return records
+
+
 # ------------------------------------------------- batched pipelining
 @dataclasses.dataclass
 class PipelinePoint:
@@ -897,8 +1012,7 @@ def pipeline_sweep(
                          f"one of ('numpy', 'torch', 'auto')")
     if engine != "vectorized":
         backend = "numpy"        # serial engines run on host
-    if backend == "torch":
-        _check_devices(cfg.devices)
+    _check_devices(cfg.devices)
     # Fingerprint the *resolved* config so auto-selected records share
     # the cache with their concrete equivalents (the §12 rule).
     cfg = dataclasses.replace(cfg, engine=engine, backend=backend)
@@ -928,7 +1042,8 @@ def pipeline_sweep(
         for (n, B), idxs in groups.items():
             durs = np.stack([points[i].durations() for i in idxs])
             out = pipelining_torch.schedule_batch(durs, B,
-                                                  device=cfg.device)
+                                                  device=cfg.device,
+                                                  devices=cfg.devices)
             for g, i in enumerate(idxs):
                 records[i] = PipelineResult(
                     B, sequential_makespan(points[i].segments, B),

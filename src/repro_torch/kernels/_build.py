@@ -9,15 +9,18 @@ not. A plain C interface keeps PyTorch's headers out of the build: seconds
 per source instead of minutes.
 
 The build runs at first use (``load``); ``build()`` runs it up front.
+Both hold one process-wide lock, so threads that first touch a kernel
+together (the optimisation server's worker beside the caller) build it
+once and share one loaded library.
 """
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -25,6 +28,9 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")
+
+_LOCK = threading.RLock()
+_LOADED: dict[str, ctypes.CDLL] = {}
 
 
 def sources() -> dict[str, Path]:
@@ -61,6 +67,11 @@ def build(names=None) -> dict[str, Path]:
     missing, one ``nvcc`` per source, all started together. Returns the
     library path of each name; the compiler's output (register and
     shared-memory use per kernel) is kept beside it as ``.log``."""
+    with _LOCK:
+        return _build(names)
+
+
+def _build(names) -> dict[str, Path]:
     srcs = sources()
     names = list(srcs) if names is None else list(names)
     out = {n: library_path(n) for n in names}
@@ -87,7 +98,11 @@ def build(names=None) -> dict[str, Path]:
     return out
 
 
-@functools.cache
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
-    return ctypes.CDLL(str(build([name])[name]))
+    """The loaded library of ``csrc/<name>.cu``, built first if needed;
+    one per process, whichever thread asks first."""
+    with _LOCK:
+        lib = _LOADED.get(name)
+        if lib is None:
+            lib = _LOADED[name] = ctypes.CDLL(str(build([name])[name]))
+        return lib

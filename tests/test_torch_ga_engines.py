@@ -269,11 +269,18 @@ def test_torch_engine_counts_fitness_calls_on_its_device():
 
 
 def test_torch_engine_rejects_sharded_and_bad_objective():
+    """``devices="sharded"`` runs (on a one-entry mesh here) and equals
+    the single-device search bit for bit; a bad devices mode or
+    objective is rejected."""
     task = divisible_task("torch", n_ops=2)
     hw = t_hw.make_hw("A", 4)
-    with pytest.raises(NotImplementedError, match="A.4"):
+    cfg = torch_cfg(generations=4, population=8, patience=4, seed=0)
+    assert_same(t_ga.run_ga(task, hw, "latency", opts("torch"),
+                            dataclasses.replace(cfg, devices="sharded")),
+                t_ga.run_ga(task, hw, "latency", opts("torch"), cfg))
+    with pytest.raises(ValueError, match="devices"):
         t_ga.run_ga(task, hw, "latency", opts("torch"),
-                    torch_cfg(devices="sharded"))
+                    torch_cfg(devices="tpu"))
     with pytest.raises(ValueError, match="objective"):
         ga_torch.solve_islands([task], [hw], opts("torch"), "speed",
                                torch_cfg())

@@ -37,7 +37,10 @@ def test_import_leaves_jax_unloaded():
             "repro_torch.sharding.mcm_planner, repro_torch.core.ga_torch, "
             "repro_torch.core.pipelining_torch, repro_torch.kernels.sgs, "
             "repro_torch.kernels.sgs.ops, repro_torch.core.netsim, "
-            "repro_torch.core.netsim_torch, repro_torch.kernels.netsim.ops; "
+            "repro_torch.core.netsim_torch, repro_torch.kernels.netsim.ops, "
+            "repro_torch.core.multitenant, repro_torch.core.sweep_shard, "
+            "repro_torch.serve.coalesce, repro_torch.serve.optserver, "
+            "repro_torch.runtime.fault_tolerance; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

@@ -12,7 +12,10 @@ tied durations, one job, one sample, batches over a warp); the batched
 waterfilling netsim against its plain version and the numpy engine
 (Fig. 3's cells, random meshes up to 16x16, zero and single flows, a
 stall, route structures shared or per network, the evaluator's flow
-mode). (Every
+mode); multi-tenant contention in one waterfilling launch bit for bit
+the numpy engine, sweeps sharded over the card listed up to three
+times, the optimisation server's worker launching kernels, and kernel
+libraries loaded from two threads. (Every
 kernel against its plain version at every variant, in both dtypes, is also
 ``chip_smoke.py``'s kernel phase.) The ``cuda``-marked tests
 need an NVIDIA Hopper card and nvcc and skip elsewhere. Imports no JAX,
@@ -631,6 +634,171 @@ def test_netsim_evaluator_flow_mode_on_the_card(cuda):
         assert got.latency == pytest.approx(want.latency, rel=1e-9)
         np.testing.assert_allclose(got.t_in, want.t_in, rtol=1e-9)
         np.testing.assert_allclose(got.t_out, want.t_out, rtol=1e-9)
+
+
+def _tenant_tasks(T):
+    from repro_torch.core.workload import GemmOp, Task
+    out = []
+    for i in range(T):
+        ops = [GemmOp("g0", M=256 * (i + 1), K=256, N=512)]
+        for j in range(1, 2 + i % 2):
+            ops.append(GemmOp(f"g{j}", M=256 * (i + 1), K=512, N=512,
+                              chained=True))
+        out.append(Task(f"t{i}", ops))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("typ,grid,T,cap", [("A", 4, 2, 64),
+                                            ("A", 8, 3, 16),
+                                            ("B", 8, 4, 12),
+                                            ("A", 16, 4, 64)])
+def test_multitenant_contention_one_launch_bitwise_numpy(cuda, typ, grid,
+                                                         T, cap):
+    """Every band assignment's contention in one waterfilling launch on
+    the card, slowdowns bit for bit the numpy engine's per-assignment
+    loop; flows outside a tenant's band (0 bytes) end at done = 0."""
+    import numpy as np
+    from repro_torch.core import make_hw
+    from repro_torch.core import multitenant as mt
+    hw = make_hw(typ, grid, "hbm")
+    tasks = _tenant_tasks(T)
+    asg = mt.band_assignments(grid, T, cap)
+    outs = []
+    real = netsim_ops.waterfill
+
+    def spy(caps, inc, msgs, routes=None, link_bytes=True):
+        out = real(caps, inc, msgs, routes=routes, link_bytes=link_bytes)
+        outs.append((msgs, out[1]))
+        return out
+
+    netsim_ops.waterfill = spy
+    before = waterfill.launches
+    try:
+        got = mt._contention_slowdowns_batch(tasks, asg, hw, device=cuda)
+    finally:
+        netsim_ops.waterfill = real
+    assert waterfill.launches == before + 1 and len(outs) == 1
+    want = np.stack([mt._contention_slowdowns(tasks, a, hw) for a in asg])
+    np.testing.assert_array_equal(got, want)
+    msgs, done = outs[0]
+    assert bool((done[msgs == 0] == 0).all())
+
+
+@pytest.mark.cuda
+def test_multitenant_solve_on_the_card_matches_numpy(cuda):
+    """A multi-tenant solve on the card: one waterfilling launch, the
+    numpy backend's assignment and slowdowns, scores at rtol 1e-9."""
+    from repro_torch.core import make_hw
+    from repro_torch.core import multitenant as mt
+    hw = make_hw("A", 8, "hbm")
+    tasks = _tenant_tasks(3)
+    cfg = mt.MultiTenantConfig(method="uniform")
+    before = waterfill.launches
+    got = mt.solve_multitenant(tasks, hw, cfg=cfg, device=cuda)
+    assert waterfill.launches == before + 1
+    want = mt.solve_multitenant(tasks, hw, cfg=cfg, backend="numpy")
+    assert got.assignment == want.assignment
+    assert [d["slowdown"] for d in got.per_tenant] == \
+        [d["slowdown"] for d in want.per_tenant]
+    assert got.edp == pytest.approx(want.edp, rel=1e-9)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 2, 3])
+def test_sharded_sweeps_on_the_card_bitwise(cuda, k):
+    """devices="sharded" with the card listed k times: eval under flow
+    (one launch a shard), netsim_sweep and pipeline_sweep, bit for bit
+    the single-device records."""
+    import numpy as np
+    from repro_torch.core import EvalOptions, make_hw, sweep, sweep_shard
+    from repro_torch.core.netsim import MeshNet
+    task = _tenant_tasks(3)[2]
+    opts = EvalOptions(congestion="flow", redistribution=True)
+    pts = [sweep.EvalPoint(task, make_hw("A", 4, "hbm", bw_nop=48.0 + 16 * i),
+                           opts) for i in range(5)]
+    nets = [MeshNet(4, 4, 64.0 + i, 128.0, [0, 3]) for i in range(5)]
+    rng = np.random.default_rng(k)
+    ppts = [sweep.PipelinePoint([(f"op{i}", *rng.uniform(0.1, 2.0, 3))
+                                 for i in range(6)], 8) for _ in range(5)]
+    single = (sweep.eval_sweep(pts, cache=False, device=cuda,
+                               devices="single"),
+              sweep.netsim_sweep(nets, 1e6, cache=False, device=cuda,
+                                 devices="single"),
+              sweep.pipeline_sweep(ppts, cache=False, device=cuda,
+                                   devices="single"))
+    before = waterfill.launches
+    with sweep_shard.use_mesh([cuda] * k):
+        shard = (sweep.eval_sweep(pts, cache=False, device=cuda,
+                                  devices="sharded"),
+                 sweep.netsim_sweep(nets, 1e6, cache=False, device=cuda,
+                                    devices="sharded"),
+                 sweep.pipeline_sweep(ppts, cache=False, device=cuda,
+                                      devices="sharded"))
+    assert waterfill.launches == before + 2 * k
+    for a, b in zip(single[0], shard[0]):
+        for key in ("latency", "energy", "t_in", "t_out"):
+            np.testing.assert_array_equal(a[key], b[key])
+    for a, b in zip(single[1], shard[1]):
+        assert a["latency"] == b["latency"]
+        np.testing.assert_array_equal(a["done"], b["done"])
+    assert [r.pipelined for r in single[2]] == [r.pipelined
+                                                for r in shard[2]]
+
+
+@pytest.mark.cuda
+def test_optserver_on_the_card_served_equals_solo(cuda):
+    """The server's worker thread launches the kernels: served records
+    equal solo sweep calls bit for bit (eval under flow, a pipeline and a
+    multi-tenant solve)."""
+    import numpy as np
+    from repro_torch.core import (EvalOptions, MultiTenantConfig, make_hw,
+                                  sweep)
+    from repro_torch.serve import OptRequest, OptServer
+    tasks = _tenant_tasks(2)
+    hw = make_hw("A", 4, "hbm")
+    reqs = [OptRequest("eval", sweep.EvalPoint(
+                t, hw, EvalOptions(congestion="flow"))) for t in tasks]
+    reqs.append(OptRequest("pipeline", sweep.PipelinePoint(
+        [("a", 1.0, 2.0, 1.0), ("b", 0.5, 1.0, 0.5)], 4)))
+    reqs.append(OptRequest("solve", sweep.MultiTenantPoint(tuple(tasks), hw),
+                           objective="edp", method="multitenant",
+                           cfg=MultiTenantConfig(method="uniform")))
+    solo = [sweep.eval_sweep([r.point], cache=False)[0] for r in reqs[:2]]
+    solo.append(sweep.pipeline_sweep([reqs[2].point], cache=False)[0])
+    solo.append(sweep.multitenant_sweep([reqs[3].point],
+                                        cfg=reqs[3].cfg, cache=False)[0])
+    sweep.clear_cache()
+    srv = OptServer(autostart=False)
+    futs = [srv.submit(r) for r in reqs]
+    srv.start()
+    got = [f.result(timeout=120) for f in futs]
+    srv.kill()
+    for a, b in zip(solo[:2], got[:2]):
+        np.testing.assert_array_equal(a["t_in"], b["t_in"])
+        assert a["latency"] == b["latency"]
+    assert solo[2].pipelined == got[2].pipelined
+    assert (solo[3].assignment, solo[3].objective) == \
+        (got[3].assignment, got[3].objective)
+
+
+@pytest.mark.cuda
+def test_kernel_load_from_two_threads(cuda):
+    """Two threads loading a kernel library at once get the same one."""
+    import threading
+    libs = []
+    start = threading.Barrier(2)
+
+    def first_use():
+        start.wait(timeout=60)
+        libs.append(_build.load("netsim_waterfill"))
+
+    threads = [threading.Thread(target=first_use) for _ in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert len(libs) == 2 and libs[0] is libs[1]
 
 
 def test_ssm_scan_kernel_rejects_cpu_tensors():

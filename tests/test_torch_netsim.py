@@ -356,13 +356,22 @@ def test_netsim_sweep_groups_shapes_and_checkpoints(tmp_path):
 
 
 def test_netsim_narrowings_and_validation():
+    """``devices="sharded"`` is no narrowing any more: it equals the
+    single-device records bit for bit; bad modes and backends raise."""
     nets = [t_netsim.fig3_net()]
-    with pytest.raises(NotImplementedError, match="A.4"):
-        t_sweep.netsim_sweep(nets, GB, devices="sharded", device="cpu")
-    with pytest.raises(NotImplementedError, match="A.4"):
-        netsim_torch.simulate_pull_batch(
-            np.ones((1, 4)), np.ones((1, 1, 4)), np.ones((1, 1)),
-            device="cpu", devices="sharded")
+    single = t_sweep.netsim_sweep(nets, GB, devices="single", device="cpu",
+                                  cache=False)
+    sharded = t_sweep.netsim_sweep(nets, GB, devices="sharded",
+                                   device="cpu", cache=False)
+    assert single[0]["latency"] == sharded[0]["latency"]
+    np.testing.assert_array_equal(single[0]["done"], sharded[0]["done"])
+    args = (np.ones((1, 4)), np.ones((1, 1, 4)), np.ones((1, 1)))
+    a = netsim_torch.simulate_pull_batch(*args, device="cpu")
+    b = netsim_torch.simulate_pull_batch(*args, device="cpu",
+                                         devices="sharded")
+    assert a["latency"][0] == b["latency"][0]
+    with pytest.raises(ValueError, match="devices"):
+        t_sweep.netsim_sweep(nets, GB, devices="tpu", device="cpu")
     with pytest.raises(ValueError, match="unknown backend"):
         t_sweep.netsim_sweep(nets, GB, backend="jax")
     if not torch.cuda.is_available():

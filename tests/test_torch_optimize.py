@@ -36,6 +36,7 @@ from repro_torch.core import ga as t_ga
 from repro_torch.core import hw as t_hw
 from repro_torch.core import miqp as t_miqp
 from repro_torch.core import miqp_lattice
+from repro_torch.core import multitenant as t_mt
 from repro_torch.core import pipelining as t_pipe
 from repro_torch.core import simba as t_simba
 from repro_torch.core import sweep as t_sweep
@@ -294,18 +295,26 @@ def test_torch_without_device_raises_here(monkeypatch):
 
 
 def test_narrowings_name_their_roadmap_item():
+    """What stays narrowed names its item (A.5); ``devices="sharded"``
+    and ``method="multitenant"`` are no narrowings any more."""
     task, hw = _task("torch", "alexnet"), _hw("torch", "A4hbm")
-    with pytest.raises(NotImplementedError, match="A.4"):
-        t_ga.run_ga(task, hw, cfg=t_ga.GAConfig(
-            engine="vectorized", backend="torch", device="cpu",
-            devices="sharded"))
-    with pytest.raises(NotImplementedError, match="A.4"):
-        t_miqp.run_miqp(task, hw, cfg=t_miqp.MIQPConfig(devices="sharded"))
     point = [t_sweep.EvalPoint(task, hw)]
     with pytest.raises(NotImplementedError, match="A.5"):
         t_sweep.solve_grid(point, "edp", method="cosearch")
-    with pytest.raises(NotImplementedError, match="A.4"):
-        t_sweep.solve_grid(point, "edp", method="multitenant")
+    rec, = t_sweep.solve_grid(
+        [t_sweep.MultiTenantPoint((task,), hw)], "edp",
+        t_mt.MultiTenantConfig(method="uniform"), method="multitenant",
+        backend="numpy", cache=False)
+    assert isinstance(rec, t_mt.MultiTenantResult)
+    small = t_sweep.EvalPoint(_task("torch", "alexnet"), hw)
+    cfg = t_miqp.MIQPConfig(candidate_budget=64, eval_budget=256,
+                            backend="torch", device="cpu")
+    a = t_sweep.solve_grid([small], "edp", cfg, method="miqp",
+                           cache=False, devices="single")[0]
+    b = t_sweep.solve_grid([small], "edp", cfg, method="miqp",
+                           cache=False, devices="sharded")[0]
+    assert a.objective == b.objective
+    np.testing.assert_array_equal(a.partition.Px, b.partition.Px)
     res = _optimize("torch", "alexnet", "A4hbm", "baseline")
     # Flow congestion (A.3) is no narrowing any more: it re-scores.
     flow = res.segments(congestion="flow")

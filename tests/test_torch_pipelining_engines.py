@@ -213,8 +213,12 @@ def test_pipeline_sweep_cache_and_config_isolation():
     assert keys == {"numpy", ("torch", "cpu")}
     with pytest.raises(ValueError, match="backend"):
         t_sweep.pipeline_sweep(pts, backend="jax")
-    with pytest.raises(NotImplementedError, match="A.4"):
-        t_sweep.pipeline_sweep(pts, device="cpu", devices="sharded")
+    # devices="sharded" (one-entry mesh here) is bitwise the records
+    e = t_sweep.pipeline_sweep(pts, device="cpu", devices="sharded",
+                               cache=False)
+    assert [x.pipelined for x in e] == [x.pipelined for x in a]
+    with pytest.raises(ValueError, match="devices"):
+        t_sweep.pipeline_sweep(pts, device="cpu", devices="tpu")
 
 
 def test_pipeline_sweep_honors_config_backend(monkeypatch):

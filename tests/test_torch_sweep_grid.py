@@ -190,16 +190,16 @@ def test_solve_grid_validation_and_narrowings():
         t_sweep.eval_sweep(pts, backend="auto")
     with pytest.raises(NotImplementedError, match="A.5"):
         t_sweep.solve_grid(pts, "edp", method="cosearch")
-    with pytest.raises(NotImplementedError, match="A.4"):
-        t_sweep.solve_grid(pts, "edp", method="multitenant")
-    with pytest.raises(NotImplementedError, match="A.4"):
+    with pytest.raises(TypeError, match="MultiTenantConfig"):
+        t_sweep.solve_grid(pts, "edp", cfg, method="multitenant")
+    with pytest.raises(ValueError, match="devices"):
         t_sweep.solve_grid(pts, "latency", cfg, device="cpu",
-                           devices="sharded")
-    with pytest.raises(NotImplementedError, match="A.4"):
+                           devices="tpu")
+    with pytest.raises(ValueError, match="devices"):
         t_sweep.solve_grid(pts, "latency", t_miqp.MIQPConfig(),
-                           method="miqp", device="cpu", devices="sharded")
-    with pytest.raises(NotImplementedError, match="A.4"):
-        t_sweep.eval_sweep(pts, device="cpu", devices="sharded")
+                           method="miqp", device="cpu", devices="tpu")
+    with pytest.raises(ValueError, match="devices"):
+        t_sweep.eval_sweep(pts, device="cpu", devices="tpu")
 
 
 # ------------------------------------------------- solve_grid, method miqp
