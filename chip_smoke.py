@@ -93,6 +93,21 @@ Phases, each printing its lines; any failure exits nonzero:
      three times on eval (both congestion models), GA islands,
      netsim_sweep, pipeline_sweep and the MIQP lattice, bit for bit the
      single-device records. The TPU kernels' counts stay 0.
+ 10. co-search (repro_torch.core.cosearch, DESIGN.md §16): one
+     cosearch_sweep on DESIGN.md §16's fig13 grid (AlexNet, ViT-B/16,
+     HydraNet at batch 1 on a 4x4 type-A HBM MCM, population 48,
+     patience 8, EDP, regime congestion): per workload its wall time and
+     seeding time on the host clock, generations, SGS launches (one a
+     generation), front size; each evolution re-run from its seeds under
+     torch.profiler (kernels a generation, host waits, busy share) and
+     equal to the sweep's record, one host sync a chunk; every best
+     genome re-scored by the numpy evaluator and the serial SGS at rtol
+     1e-9, every front non-dominated, every best EDP at most the better
+     uniform baseline row's; two AlexNet points of one shape solved
+     together equal to their solo records; one flow-congestion search on
+     AlexNet (one SGS and one waterfilling launch a generation),
+     re-scored by the numpy flow evaluator. The TPU kernels' counts
+     stay 0.
 Then one JSON line of kernel numbers, and as the last line
 {"ok": true, "device": {...}}. Without a card it exits 1 and prints no
 result. Imports nothing of JAX.
@@ -2643,6 +2658,267 @@ def phase_multitenant():
     return dict(main_launches), contention
 
 
+# Phase 10: the fused co-search (repro_torch.core.cosearch, DESIGN.md
+# §16) on DESIGN.md §16's fig13 grid: alexnet, vit and hydranet at batch
+# 1 on a 4x4 type-A HBM MCM (the paper's size, not cut), population 48,
+# patience 8 (the other budgets CoSearchConfig's defaults: 64
+# generations, 32 descent steps from 4 starts, batch 4, archive 32).
+COSEARCH_WORKLOADS = ("alexnet", "vit", "hydranet")
+COSEARCH_CFG = dict(population=48, patience=8)
+COSEARCH_RTOL = 1e-9
+
+
+def host_rescore(task, hw, options, genome, batch, seg_overhead=0.0):
+    """A co-search genome (partition, redist mask, diag, seg mask)
+    through the port's numpy evaluator and the serial heap SGS
+    (pipelining.list_schedule): (edp, latency, energy)."""
+    import dataclasses
+
+    from repro_torch.core import pipelining
+    from repro_torch.core.evaluator import Evaluator
+    part, rd, diag, seg = genome
+    ev = Evaluator(task, dataclasses.replace(hw, diagonal_links=diag),
+                   options, backend="numpy").evaluate(part, rd)
+    n = len(task)
+    seg_id = np.concatenate([[0], np.cumsum(seg[:-1])]).astype(int)
+    slots = np.zeros((n, 3))
+    for i in range(n):
+        slots[seg_id[i]] += (ev.t_in[i], ev.t_comp[i], ev.t_out[i])
+    slots[:seg_id[-1] + 1, 0] += seg_overhead
+    mk, _ = pipelining.list_schedule(pipelining.build_jobs(
+        [(f"s{k}", *slots[k]) for k in range(n)], batch))
+    lat = mk / batch
+    return ev.energy * lat, lat, ev.energy
+
+
+def same_cosearch(a, b):
+    return (a.objective == b.objective and a.diagonal == b.diagonal
+            and (a.edp, a.latency, a.energy) == (b.edp, b.latency, b.energy)
+            and np.array_equal(a.partition.Px, b.partition.Px)
+            and np.array_equal(a.partition.Py, b.partition.Py)
+            and np.array_equal(a.partition.collectors, b.partition.collectors)
+            and np.array_equal(a.redist_mask, b.redist_mask)
+            and np.array_equal(a.seg_mask, b.seg_mask)
+            and a.front.keys() == b.front.keys()
+            and all(np.array_equal(a.front[k], b.front[k]) for k in a.front)
+            and np.array_equal(a.history, b.history)
+            and a.evaluations == b.evaluations)
+
+
+def phase_cosearch():
+    """Phase 10: the fused co-search on the card. One cosearch_sweep over
+    DESIGN.md §16's fig13 grid (each workload its own shape group, so
+    one island each), timed per workload on the host clock, with its
+    gradient seeding timed apart; every generation one SGS launch. Each
+    best genome re-scored by numpy + the serial SGS at rtol 1e-9, each
+    front non-dominated, each best EDP at most the better uniform
+    baseline row's; each workload's evolution re-run from the same
+    seeds under torch.profiler (kernels a generation, host waits, busy
+    share) and equal to the sweep's record; two alexnet points of one
+    shape solved together equal their solo records; one flow search on
+    alexnet, one waterfilling launch a generation, re-scored by the
+    numpy flow evaluator. No TPU kernel launches."""
+    import dataclasses
+
+    from repro_torch.core import api, evaluator_torch, sweep
+    from repro_torch.core import cosearch as cs
+    from repro_torch.core.evaluator import EvalOptions, Evaluator
+    from repro_torch.core.hw import make_hw
+    from repro_torch.core.workload import Partition
+    from repro_torch.graphs import WORKLOADS
+    from repro_torch.kernels.netsim.kernel import waterfill
+    from repro_torch.kernels.sgs.kernel import sgs_batch
+
+    t_phase = time.perf_counter()
+    sweep.clear_cache()
+    main_launches = collections.Counter()
+    hw = make_hw("A", 4, "hbm")
+    opts = EvalOptions(redistribution=True, async_exec=True)
+    cfg = cs.CoSearchConfig(**COSEARCH_CFG)
+    tasks = {w: WORKLOADS[w](batch=1) for w in COSEARCH_WORKLOADS}
+
+    # Wrap the module's entry points to time each workload's search and
+    # its seeding, count generation steps and keep the seeds.
+    real_islands, real_seeds, real_apply = (cs.cosearch_islands,
+                                            cs.gradient_seeds, cs._apply)
+    log_rows, seeds, applied = {}, {}, [0]
+
+    def timed_islands(tasks_, hws_, *a, **kw):
+        name = tasks_[0].name
+        applied[0] = 0
+        sgs0, wf0 = sgs_batch.launches, waterfill.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_islands(tasks_, hws_, *a, **kw)
+        torch.cuda.synchronize()
+        row = log_rows.setdefault(name, {})
+        row.update({"wall_s": time.perf_counter() - t0,
+                    "generation_steps": applied[0],
+                    "sgs_launches": sgs_batch.launches - sgs0,
+                    "waterfill_launches": waterfill.launches - wf0})
+        return out
+
+    def timed_seeds(task, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_seeds(task, *a, **kw)
+        torch.cuda.synchronize()
+        log_rows.setdefault(task.name, {})["seeding_s"] = \
+            time.perf_counter() - t0
+        seeds[task.name] = out
+        return out
+
+    def counted_apply(*a, **kw):
+        applied[0] += 1
+        return real_apply(*a, **kw)
+
+    cs.cosearch_islands, cs.gradient_seeds, cs._apply = (
+        timed_islands, timed_seeds, counted_apply)
+    calls = evaluator_torch.grid_evaluate.calls
+    try:
+        reset_launch_counts()
+        calls.clear()
+        t0 = time.perf_counter()
+        recs = sweep.cosearch_sweep(
+            [sweep.EvalPoint(tasks[w], hw, opts) for w in tasks], "edp", cfg)
+        sweep_s = time.perf_counter() - t0
+        fitness_calls = dict(calls)
+        # Every fitness call (generation steps and descent steps) on cuda.
+        assert set(fitness_calls) == {"cuda"}, fitness_calls
+        counts = launch_counts()
+        assert not any(counts[k] for k in TPU_KERNELS), counts
+        main_launches.update(counts)
+
+        # The profiled re-runs: the same seeds, so the same records.
+        prof = {}
+        for w, r in zip(tasks, recs):
+            applied[0] = 0
+            box = []
+            prof[w] = ga_profile(lambda: box.append(real_islands(
+                [tasks[w]], [hw], opts, "edp", cfg,
+                seeds=[seeds[tasks[w].name]])[0]),
+                1, 0)
+            steps = applied[0]
+            prof[w].update({
+                "generation_steps": steps,
+                "chunks": -(-steps // cfg.patience),
+                "kernels_per_generation":
+                    prof[w]["kernels_per_generation"] / steps})
+            assert same_cosearch(box[0], r), w
+        # The host waits for the card once a chunk, nowhere else.
+        applied[0] = 0
+        syncs = counted_syncs(lambda: real_islands(
+            [tasks["alexnet"]], [hw], opts, "edp", cfg,
+            seeds=[seeds[tasks["alexnet"].name]]))
+        sync_chunks = -(-applied[0] // cfg.patience)
+        assert syncs == sync_chunks, (syncs, sync_chunks)
+        seed_prof = device_breakdown(lambda: real_seeds(
+            tasks["vit"], hw, opts, "edp", cfg))
+    finally:
+        cs.cosearch_islands, cs.gradient_seeds, cs._apply = (
+            real_islands, real_seeds, real_apply)
+
+    for w, r in zip(tasks, recs):
+        t = tasks[w]
+        row = log_rows[t.name]
+        assert row["sgs_launches"] == row["generation_steps"], (w, row)
+        got = host_rescore(t, hw, opts, (r.partition, r.redist_mask,
+                                         r.diagonal, r.seg_mask), cfg.batch)
+        err = max(abs(g - v) / abs(v) for g, v in
+                  zip(got, (r.edp, r.latency, r.energy)))
+        assert err <= COSEARCH_RTOL, (w, got, r.edp, r.latency, r.energy)
+        pts = np.stack([r.front[k] for k in cs.OBJECTIVES], 1)
+        assert cs.pareto_mask(pts).all(), w
+        assert r.front["edp"].min() == r.edp, w
+        Px, Py, co, rd, dg, sg = cs._init_island(t, hw, opts, cfg, [])
+        valid = Evaluator(t, hw, opts, backend="numpy").chain_valid
+        base = []
+        for row_i in (0, 1):
+            part = Partition(Px[row_i].astype(np.int64),
+                             Py[row_i].astype(np.int64),
+                             co[row_i].astype(np.int64))
+            rdm = rd[row_i].astype(bool) & valid
+            base.append(host_rescore(t, hw, opts, (part, rdm,
+                                                   bool(dg[row_i]),
+                                                   sg[row_i] > 0.5),
+                                     cfg.batch)[0])
+        assert r.edp <= min(base) * (1 + COSEARCH_RTOL), (w, r.edp, base)
+        row.update({"generations": len(r.history),
+                    "sgs_launches_per_generation": row["sgs_launches"]
+                    / row["generation_steps"],
+                    "front_size": len(r.front["edp"]),
+                    "best_edp": r.edp, "latency": r.latency,
+                    "energy": r.energy, "diagonal": r.diagonal,
+                    "segments": int(r.seg_mask.sum()) + 1,
+                    "uniform_rows_edp (plain 1 seg, diag per-op)": base,
+                    "rescore_max_rel_err": err,
+                    "seeds": len(seeds[t.name]),
+                    "profiled_evolution": prof[w]})
+        log("cosearch", json.dumps({"workload": w, "ops": len(t),
+                                    **row}))
+    log("cosearch", json.dumps({
+        "leg": "fig13 cosearch_sweep (host clock)", "points": len(recs),
+        "sweep_s": sweep_s, "config": COSEARCH_CFG,
+        "launches": {k: v for k, v in counts.items() if v},
+        "evaluator_calls": fitness_calls,
+        "host_syncs_alexnet_evolution": syncs, "chunks": sync_chunks,
+        "seeding_vit_profiled": seed_prof}))
+
+    # Solo == batched on the card: two alexnet points of one shape.
+    pair = [tasks["alexnet"], WORKLOADS["alexnet"](batch=2)]
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    batched = cs.cosearch_islands(pair, [hw, hw], opts, "edp", cfg)
+    batched_s = time.perf_counter() - t0
+    solo = [recs[0], cs.run_cosearch(pair[1], hw, "edp", opts, cfg)]
+    assert all(same_cosearch(a, b) for a, b in zip(solo, batched))
+    counts = launch_counts()
+    assert not any(counts[k] for k in TPU_KERNELS), counts
+    main_launches.update(counts)
+    log("cosearch", json.dumps({
+        "leg": "solo == batched (alexnet batch 1 and 2)",
+        "bit_identical": True, "batched_s": batched_s}))
+
+    # One flow-congestion search on alexnet: the waterfilling kernel
+    # once a generation beside the SGS kernel.
+    flow = dataclasses.replace(opts, congestion="flow")
+    reset_launch_counts()
+    applied[0] = 0
+    cs._apply = counted_apply
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fr = api.cosearch(tasks["alexnet"], hw, "edp", flow, cfg)
+        torch.cuda.synchronize()
+        flow_s = time.perf_counter() - t0
+    finally:
+        cs._apply = real_apply
+    counts = launch_counts()
+    assert not any(counts[k] for k in TPU_KERNELS), counts
+    assert counts["sgs_batch"] == applied[0], (counts, applied[0])
+    assert counts["netsim_waterfill"] == applied[0], (counts, applied[0])
+    main_launches.update(counts)
+    got = host_rescore(tasks["alexnet"], hw, flow,
+                       (fr.partition, fr.redist_mask, fr.diagonal,
+                        fr.seg_mask), cfg.batch)
+    ferr = max(abs(g - v) / abs(v)
+               for g, v in zip(got, (fr.edp, fr.latency, fr.energy)))
+    assert ferr <= COSEARCH_RTOL, (got, fr.edp)
+    assert cs.pareto_mask(np.stack([fr.front[k] for k in cs.OBJECTIVES],
+                                   1)).all()
+    log("cosearch", json.dumps({
+        "leg": "alexnet under congestion='flow' (host clock)",
+        "wall_s": flow_s, "generations": len(fr.history),
+        "generation_steps": applied[0],
+        "launches": {k: v for k, v in counts.items() if v},
+        "best_edp": fr.edp, "regime_best_edp": recs[0].edp,
+        "front_size": len(fr.front["edp"]), "diagonal": fr.diagonal,
+        "rescore_max_rel_err": ferr}))
+    assert not any(main_launches[k] for k in TPU_KERNELS)
+    log("cosearch", f"phase 10 in {time.perf_counter() - t_phase:.1f}s")
+    return dict(main_launches)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -2663,9 +2939,10 @@ def main():
     launches.update(counts)
     counts, _ = phase_multitenant()
     launches.update(counts)
-    log("multitenant", f"launches over the calibration pass, the three "
-        f"serve paths, the pipelining sweep, the flow legs and phase 9: "
-        f"{dict(launches)}")
+    launches.update(phase_cosearch())
+    log("cosearch", f"launches over the calibration pass, the three "
+        f"serve paths, the pipelining sweep, the flow legs, phase 9 and "
+        f"phase 10: {dict(launches)}")
     kernels = [{
         "name": name, "route": "cuda", "source": src, "replaces": tpu,
         "launches": launches[name],

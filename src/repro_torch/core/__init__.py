@@ -35,11 +35,21 @@ package's numpy modules, with a float64 torch evaluator for the card:
     :mod:`.simba` — the heuristic baseline.
   * :mod:`.pipelining` — RCPSP cross-sample pipelining (Sec. 5.4), with
     the batched SGS on the card (:mod:`.pipelining_torch`).
-  * :mod:`.api` — one-call front door, :func:`optimize`.
+  * :mod:`.cosearch` — the fused cross-layer co-search (DESIGN.md §16):
+    one genome over partition × diagonal links × pipeline segments,
+    scored through the torch evaluator and the SGS kernel, with a Pareto
+    archive on the device and gradient seeds by ``torch.autograd``;
+    wired as :func:`.sweep.cosearch_sweep`.
+  * :mod:`.api` — one-call front doors, :func:`optimize` and
+    ``api.cosearch``.
 """
 from . import netsim, netsim_torch  # noqa: F401
 from .api import (ScheduleResult, baseline_result, optimize,  # noqa: F401
                   refine_schedule)
+# NB: the joint-search front door is ``api.cosearch`` — the name
+# ``repro_torch.core.cosearch`` stays bound to the submodule.
+from .cosearch import (CoSearchConfig, CoSearchResult,  # noqa: F401
+                       run_cosearch)
 from .evaluator import (AUTO_POPULATION_THRESHOLD, BACKENDS,  # noqa: F401
                         CONGESTION_MODES, DEVICE_MODES, EvalOptions,
                         EvalResult, Evaluator, resolve_auto_backend)
@@ -54,8 +64,9 @@ from .pipelining import (PIPELINE_ENGINES, PipelineConfig,  # noqa: F401
                          PipelineResult, pipeline_batch,
                          resolve_auto_pipeline_engine)
 from .sweep import (EvalPoint, MultiTenantPoint,  # noqa: F401
-                    PipelinePoint, eval_sweep, multitenant_sweep,
-                    netsim_sweep, pipeline_sweep, solve_grid)
+                    PipelinePoint, cosearch_sweep, eval_sweep,
+                    multitenant_sweep, netsim_sweep, pipeline_sweep,
+                    solve_grid)
 from .workload import (GemmOp, Partition, Task,  # noqa: F401
                        clamp_partition_to_domain, partition_domain,
                        uniform_partition)

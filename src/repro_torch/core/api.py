@@ -5,9 +5,9 @@ of the paper's Table 3 behind one call, plus pipelining.
 >>> res = api.optimize(task, hw, method="miqp", objective="latency")
 >>> res.latency, res.speedup_vs_baseline
 
-The port's copy of the JAX package's ``core/api.py``. The torch
-evaluator runs on ``device`` (``None`` means the card, and raises
-without one); the JAX package's ``cosearch`` comes with ROADMAP.md A.5.
+The port's copy of the JAX package's ``core/api.py``, with
+:func:`cosearch`, the fused joint search. The torch evaluator runs on
+``device`` (``None`` means the card, and raises without one).
 """
 from __future__ import annotations
 
@@ -27,7 +27,7 @@ from .sweep import EvalPoint, eval_sweep
 from .workload import Partition, Task, uniform_partition
 
 __all__ = ["ScheduleResult", "optimize", "baseline_result",
-           "refine_schedule", "METHODS"]
+           "refine_schedule", "cosearch", "METHODS"]
 
 METHODS = ("baseline", "simba", "ga", "miqp")
 
@@ -304,3 +304,34 @@ def optimize(
                           backend=scoring_backend,
                           device=cfg.device if method == "ga" else device)
 
+
+def cosearch(
+    task: Task,
+    hw: HWConfig,
+    objective: str = "edp",
+    options: EvalOptions | None = None,
+    cfg=None,
+    cache: bool = True,
+    devices: str | None = None,
+    device=None,
+):
+    """One-call front door for the fused joint search (DESIGN.md §16):
+    partition × diagonal links × pipeline segmentation scored end to end
+    in one fused fitness on the card. Returns a
+    :class:`.cosearch.CoSearchResult` — the best genome on ``objective``
+    plus the Pareto front over (EDP, latency, energy). Unlike
+    :func:`optimize`, the link configuration is *part of the genome*
+    (``hw.diagonal_links`` is ignored), and the pipeline schedule is
+    searched jointly instead of refined afterwards.
+
+    Routes through :func:`.sweep.cosearch_sweep`, so results land in
+    (and are served from) the §9 cache under the ``"cosearch"`` method
+    tag; ``cfg`` defaults to :class:`.cosearch.CoSearchConfig()`, and
+    ``device`` (``None``: the config's, the card by default) is where
+    it runs."""
+    from .sweep import cosearch_sweep
+
+    opts = options or EvalOptions(redistribution=True, async_exec=True)
+    return cosearch_sweep([EvalPoint(task, hw, opts)], objective=objective,
+                          cfg=cfg, cache=cache, devices=devices,
+                          device=device)[0]

@@ -36,6 +36,12 @@ bundle, so a flow call on the card waits for the device nowhere.
 ``device=None`` means the card and raises without one
 (:func:`repro_torch.device.resolve_device`).
 
+Two inputs serve the co-search (:mod:`.cosearch`): the mesh constants
+that diagonal links change may carry the population axis (one call
+scores candidates on both meshes), and ``smooth=True`` evaluates the
+differentiable relaxation that its gradient seeds descend
+(:func:`_evaluate`).
+
 ``grid_evaluate.calls`` counts every evaluation by device type
 (``"cuda"``, ``"cpu"``), numpy-in or tensor-in, as the kernels' wrappers
 count their launches.
@@ -43,6 +49,7 @@ count their launches.
 from __future__ import annotations
 
 import collections
+import contextlib
 import functools
 from typing import Any, Dict
 
@@ -162,18 +169,42 @@ def _flow_times(c: dict[str, torch.Tensor], demand, chunk):
 
 def _evaluate(c: dict[str, torch.Tensor], Px, Py, collectors, redist, *,
               redistribution: bool, async_exec: bool, energy_mode: str,
-              congestion: str = "regime") -> dict[str, torch.Tensor]:
+              congestion: str = "regime", smooth: bool = False
+              ) -> dict[str, torch.Tensor]:
     """Line-for-line port of ``Evaluator._evaluate_batch_numpy`` with a
     leading grid axis: constants ``[G, ...]``, ``Px [G, P, n, X]``,
-    ``Py [G, P, n, Y]``, ``collectors`` and ``redist`` ``[G, P, n]``."""
+    ``Py [G, P, n, Y]``, ``collectors`` and ``redist`` ``[G, P, n]``.
+
+    The mesh constants that the diagonal links change (``hA``, ``hW``,
+    ``h_min``, ``links``: the co-search's ``DIAG_KEYS``) may also carry
+    the population axis, ``[G, P, ...]``, so that one call scores
+    candidates on different meshes.
+
+    ``smooth=True`` is the JAX package's continuous relaxation for the
+    co-search's gradient seeds (``evaluator_jax._eval_single``): the
+    tile counts ``ceil(P / unit)`` become ``P / unit``, and ``|x|`` takes
+    JAX's derivative at 0 (``+1``), so ``torch.autograd`` gives JAX's
+    gradient. Reductions stay ``amax``, which splits a tied maximum's
+    gradient evenly, as JAX's ``max`` does. Only the regime congestion
+    model is differentiable."""
     G, P, n, X = Px.shape
     Y = Py.shape[-1]
+    if smooth and congestion == "flow":
+        raise ValueError("smooth=True differentiates the regime "
+                         "congestion model only; congestion='flow' has "
+                         "no gradient")
 
     def per_op(k):            # [G, n] -> [G, 1, n]
         return c[k][:, None, :]
 
     def scalar(k, dims):      # [G] -> [G, 1, ...] over ``dims`` axes
         return c[k].reshape((G,) + (1,) * dims)
+
+    def mesh(k, dims):        # [G, ...] or [G, P, ...] -> [G, 1|P, 1, ...]
+        v = c[k]
+        if v.dim() == dims + 1:
+            v = v[:, None]
+        return v[:, :, None]
 
     B4 = scalar("B", 3)
     R, C = c["R"], c["C"]
@@ -199,8 +230,8 @@ def _evaluate(c: dict[str, torch.Tensor], Px, Py, collectors, redist, *,
     W_e = torch.einsum("gey,gpny->gpne", c["col_mask"], inW)
     t_off_in = ((keepA[..., None] * A_e + W_e) / bw_ent).amax(dim=-1)
 
-    tA_xy = inA[..., :, None] * c["hA"][:, None, None]       # bytes*hops
-    tW_xy = inW[..., None, :] * c["hW"][:, None, None]
+    tA_xy = inA[..., :, None] * mesh("hA", 2)                # bytes*hops
+    tW_xy = inW[..., None, :] * mesh("hW", 2)
     flow_mode = congestion == "flow"
     if flow_mode:
         # Flow congestion: simulated per-chiplet NoP arrival times
@@ -217,8 +248,12 @@ def _evaluate(c: dict[str, torch.Tensor], Px, Py, collectors, redist, *,
 
     # ------------------------------------------------ phase 2: compute
     fill = (2.0 * scalar("R", 2) + scalar("C", 2) + K - 2.0)[..., None, None]
-    tiles = (torch.ceil(Px / scalar("R", 3))[..., :, None]
-             * torch.ceil(Py / scalar("C", 3))[..., None, :])
+    if smooth:
+        tiles = ((Px / scalar("R", 3))[..., :, None]
+                 * (Py / scalar("C", 3))[..., None, :])
+    else:
+        tiles = (torch.ceil(Px / scalar("R", 3))[..., :, None]
+                 * torch.ceil(Py / scalar("C", 3))[..., None, :])
     cyc = fill * tiles
     cyc = cyc + (per_op("epilogue")[..., None, None] * Px[..., :, None]
                  * Py[..., None, :] / scalar("C", 4))
@@ -236,10 +271,13 @@ def _evaluate(c: dict[str, torch.Tensor], Px, Py, collectors, redist, *,
         out_at_ent = torch.einsum("gexy,gpnxy->gpne", c["ent_pos"], chunk)
         is3d = c["is3d"][:, None, None, :]
         nonlocal_out = out_e - torch.where(is3d, out_at_ent, 0.0)
-        links = c["links"][:, None, None, :]
+        links = mesh("links", 1)                             # [G,1|P,1,E]
+        # Dividing by 1 where a link count is 0 keeps the value and its
+        # gradient finite; torch.where drops those lanes either way.
+        links_safe = torch.where(links > 0, links, 1.0)
         t_collect = torch.where(
             links > 0,
-            nonlocal_out / (links * c["bw_nop_ent"][:, None, None, :]),
+            nonlocal_out / (links_safe * c["bw_nop_ent"][:, None, None, :]),
             0.0,
         ).amax(dim=-1)
         t_offload = torch.maximum(t_collect, t_off_out)
@@ -262,8 +300,11 @@ def _evaluate(c: dict[str, torch.Tensor], Px, Py, collectors, redist, *,
     cumf = torch.cumsum(Px, dim=-1) / torch.clamp(M[..., None], min=1.0)
     cumf_next = torch.cat([cumf[:, :, 1:], cumf[:, :, -1:]], dim=2)
     if X > 1:
-        crossing = (torch.abs(cumf - cumf_next)[..., : X - 1]
-                    * M[..., None])
+        dcum = cumf - cumf_next
+        # JAX differentiates |x| at 0 as +1; torch.abs as 0.
+        adiff = torch.where(dcum >= 0, dcum, -dcum) if smooth else \
+            torch.abs(dcum)
+        crossing = adiff[..., : X - 1] * M[..., None]
         cross_bytes = crossing * N[..., None] * B4
         t3 = (cross_bytes / c["cross_bw"][:, None, None]).amax(dim=-1)
     else:
@@ -309,7 +350,7 @@ def _evaluate(c: dict[str, torch.Tensor], Px, Py, collectors, redist, *,
 
     # NoP bytes×hops: loads + (collection | redistribution).
     load_bh = (keepA[..., None, None] * tA_xy + tW_xy).sum(dim=(-1, -2))
-    collect_bh = (chunk * c["h_min"][:, None, None]).sum(dim=(-1, -2))
+    collect_bh = (chunk * mesh("h_min", 2)).sum(dim=(-1, -2))
     red_bh = (
         (left_x + right_x).sum(dim=-1)              # step-1 gather
         + rowbytes.sum(dim=-1) * max(Y - 1, 1)      # step-2 broadcast
@@ -334,7 +375,7 @@ def _evaluate(c: dict[str, torch.Tensor], Px, Py, collectors, redist, *,
 
 
 def evaluate_tensors(c: dict[str, torch.Tensor], opts: EvalOptions,
-                     Px, Py, collectors, redist
+                     Px, Py, collectors, redist, smooth: bool = False
                      ) -> dict[str, torch.Tensor]:
     """Grid-batched evaluation on device tensors, for callers that keep
     their genomes on the device: constants from :func:`to_device`
@@ -342,14 +383,16 @@ def evaluate_tensors(c: dict[str, torch.Tensor], opts: EvalOptions,
     Y]``, ``collectors`` and ``redist`` ``[G, P, n]`` on the constants'
     device. Returns float64 tensors there (``[G, P]`` and ``[G, P,
     n]``); copies nothing and never waits for the device. Counted in
-    ``grid_evaluate.calls``."""
+    ``grid_evaluate.calls``. ``smooth=True`` (regime congestion only)
+    evaluates the differentiable relaxation with autograd on; otherwise
+    no graph is recorded."""
     grid_evaluate.calls[Px.device.type] += 1
-    with torch.no_grad():
+    with contextlib.nullcontext() if smooth else torch.no_grad():
         return _evaluate(c, Px, Py, collectors, redist,
                          redistribution=bool(opts.redistribution),
                          async_exec=bool(opts.async_exec),
                          energy_mode=opts.energy_mode,
-                         congestion=opts.congestion)
+                         congestion=opts.congestion, smooth=smooth)
 
 
 def _grid_tensors(consts_stack, Px, Py, collectors, redist, *,

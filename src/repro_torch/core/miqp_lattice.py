@@ -108,6 +108,30 @@ def _axis_anchor(S: int, parts: int, lo: int, hi: int) -> np.ndarray:
     return a
 
 
+def _repair_units(units: np.ndarray, S: int, lo: int, hi: int
+                  ) -> np.ndarray:
+    """Project an arbitrary unit vector into the axis window: clip to
+    ``[lo, hi]``, then walk the residue one unit at a time (the same
+    repair loop as :func:`_axis_anchor`). Turns external anchor
+    proposals (the co-search's gradient seeds, DESIGN.md §16) into
+    valid lattice anchors."""
+    parts = len(units)
+    if not lo * parts <= S <= hi * parts:
+        raise ValueError(f"infeasible axis window: {parts}x[{lo},{hi}] "
+                         f"cannot sum to {S}")
+    a = np.clip(np.asarray(units, dtype=np.int64), lo, hi)
+    resid = int(S - a.sum())
+    while resid != 0:
+        step = 1 if resid > 0 else -1
+        for k in range(parts):
+            if resid == 0:
+                break
+            if lo <= a[k] + step <= hi:
+                a[k] += step
+                resid -= step
+    return a
+
+
 def _monotone_axis(S: int, parts: int, lo: int, hi: int, cap: int
                    ) -> tuple[list[tuple[int, ...]], bool]:
     """All non-decreasing unit compositions of ``S`` into ``parts``
@@ -136,6 +160,7 @@ def _monotone_axis(S: int, parts: int, lo: int, hi: int, cap: int
 
 
 def axis_lattice(S: int, parts: int, lo: int, hi: int, cap: int,
+                 anchor: np.ndarray | None = None,
                  ) -> tuple[np.ndarray, np.ndarray, bool]:
     """Enumerate unit compositions of ``S`` into ``parts`` entries within
     ``[lo, hi]``, structured-candidates-first.
@@ -157,10 +182,19 @@ def axis_lattice(S: int, parts: int, lo: int, hi: int, cap: int,
     the *general* enumeration finished before hitting ``cap`` (the set
     is the full window lattice).
 
-    The JAX package's ``anchor`` argument (recentring on the co-search's
-    gradient seeds) comes with the port's co-search (ROADMAP.md A.5).
+    ``anchor`` (optional) recenters the enumeration on an external unit
+    vector instead of the in-window uniform projection — deviation
+    ordering, ridge ranking and the dfs budget levels all measure L1
+    distance from it, so a capped lattice keeps the *anchor's*
+    neighbourhood (how the co-search's gradient seeds prune the MIQP
+    enumeration, DESIGN.md §16). The anchor is window-repaired and
+    emitted as candidate 0; ``anchor=None`` keeps the uniform-anchor
+    lattice bit for bit.
     """
-    a = _axis_anchor(S, parts, lo, hi)
+    if anchor is None:
+        a = _axis_anchor(S, parts, lo, hi)
+    else:
+        a = _repair_units(anchor, S, lo, hi)
     seen: set[tuple[int, ...]] = set()
     out: list[tuple[int, ...]] = []
 
@@ -171,6 +205,10 @@ def axis_lattice(S: int, parts: int, lo: int, hi: int, cap: int,
             out.append(t)
         return len(out) < cap
 
+    if anchor is not None:
+        # A custom anchor need not be monotone — emit it explicitly so
+        # candidate 0 is the anchor under any cap.
+        push(a)
     ridge, ridge_complete = _monotone_axis(S, parts, lo, hi, cap)
     ridge = sorted(ridge, key=lambda t: (int(np.abs(np.array(t) - a).sum()),
                                          t))
@@ -221,23 +259,32 @@ def axis_lattice(S: int, parts: int, lo: int, hi: int, cap: int,
     return units, np.abs(units - a).sum(axis=1), complete
 
 
-def layer_lattice(task: Task, hw: HWConfig, cfg: MIQPConfig
-                  ) -> list[dict]:
+def layer_lattice(task: Task, hw: HWConfig, cfg: MIQPConfig,
+                  anchor: Partition | None = None) -> list[dict]:
     """Per-op candidate sets, ordered by combined row+column deviation
     from uniform. Each entry holds the R/C *unit* vectors (``ux [C, X]``,
     ``uy [C, Y]``, the descent phase moves in this space), the un-padded
     exact-sum partition values (``px``, ``py`` — what the evaluator
-    scores), and a ``complete`` flag (no cap bound)."""
+    scores), and a ``complete`` flag (no cap bound).
+
+    ``anchor`` (optional :class:`Partition`) recenters each op's axis
+    lattices on the anchor's rows instead of the uniform projection —
+    value-space rows convert back to units via ``ceil(p / unit)``, the
+    inverse of the ``unpad(u·unit)`` emission."""
     X, Y = hw.X, hw.Y
     lo, hi = partition_domain(task, X, Y, hw.R, hw.C, cfg.slack)
     out = []
     for i, op in enumerate(task.ops):
         Mu = int(np.ceil(op.M / hw.R))
         Nu = int(np.ceil(op.N / hw.C))
+        ax = ay = None
+        if anchor is not None:
+            ax = np.ceil(anchor.Px[i] / hw.R).astype(np.int64)
+            ay = np.ceil(anchor.Py[i] / hw.C).astype(np.int64)
         ux, l1x, cx = axis_lattice(Mu, X, int(lo[i, 0]), int(hi[i, 0]),
-                                   cfg.max_axis_candidates)
+                                   cfg.max_axis_candidates, anchor=ax)
         uy, l1y, cy = axis_lattice(Nu, Y, int(lo[i, 1]), int(hi[i, 1]),
-                                   cfg.max_axis_candidates)
+                                   cfg.max_axis_candidates, anchor=ay)
         # (rows × cols) pairs by combined axis *rank* (not raw L1 — the
         # axis lists lead with the ridge family, and rank order is what
         # keeps it alive under the layer cap); the stable argsort of the
@@ -259,12 +306,13 @@ def layer_lattice(task: Task, hw: HWConfig, cfg: MIQPConfig
 class _Space:
     """One point's enumerated search lattice + its Sec.-6.2 windows."""
 
-    def __init__(self, task: Task, hw: HWConfig, cfg: MIQPConfig):
+    def __init__(self, task: Task, hw: HWConfig, cfg: MIQPConfig,
+                 anchor: Partition | None = None):
         self.task = task
         self.hw = hw
         lo, hi = partition_domain(task, hw.X, hw.Y, hw.R, hw.C, cfg.slack)
         self.lo, self.hi = lo, hi
-        self.cands = layer_lattice(task, hw, cfg)
+        self.cands = layer_lattice(task, hw, cfg, anchor=anchor)
         self.sizes = [len(c["px"]) for c in self.cands]
         self.joint = int(np.prod(self.sizes, dtype=object))
         self.complete = all(c["complete"] for c in self.cands)
@@ -705,25 +753,38 @@ def solve_lattice_batch(
     options: EvalOptions,
     objective: str,
     cfg: MIQPConfig,
+    anchors: Sequence[Partition | None] | None = None,
 ) -> list[MIQPResult]:
     """Solve one MIQP lattice search per (task, hw) point through batched
     scoring calls. All points must share a shape signature (n_ops, X, Y,
     n_entrances); a solo :func:`.miqp.run_miqp` call is the ``G=1`` case
     of the same deterministic program, so results are identical either
     way. Returns one :class:`.miqp.MIQPResult` per point, aligned with
-    the inputs. The JAX package's ``anchors`` (the co-search's seeds)
-    come with the port's co-search (ROADMAP.md A.5)."""
+    the inputs.
+
+    ``anchors`` (optional, per point, entries may be ``None``) recenters
+    each point's lattice enumeration on an external :class:`Partition`
+    proposal (see :func:`layer_lattice`; e.g.
+    :func:`.cosearch.miqp_anchor`) — capped enumerations then spend
+    their candidate budget around the proposal instead of the uniform
+    split. ``anchors=None`` is the uniform-anchored search, bit for
+    bit."""
     if objective not in OBJECTIVES:
         raise ValueError(f"unknown objective {objective!r}; "
                          f"one of {OBJECTIVES}")
     G = len(tasks)
     assert G == len(hws) and G > 0
+    if anchors is not None and len(anchors) != G:
+        raise ValueError(f"anchors must align with points: "
+                         f"{len(anchors)} != {G}")
     if cfg.devices not in DEVICE_MODES:
         raise ValueError(f"bad devices {cfg.devices!r}; "
                          f"one of {DEVICE_MODES}")
     backend = resolve_auto_backend(cfg.backend, cfg.score_chunk)
     n = len(tasks[0])
-    spaces = [_Space(t, h, cfg) for t, h in zip(tasks, hws)]
+    spaces = [_Space(t, h, cfg,
+                     anchor=None if anchors is None else anchors[g])
+              for g, (t, h) in enumerate(zip(tasks, hws))]
 
     # Mode is a per-point decision (it must not depend on grouping).
     exact = [g for g in range(G)

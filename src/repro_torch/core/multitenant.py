@@ -43,8 +43,9 @@ the candidate set, so the search result is never worse than it.
 All budgets are deterministic counts (assignment enumeration order,
 inner-solver budgets); there is no wall-clock anywhere, so a point
 solved alone equals the same point solved in a batch — the §9 contract.
-The JAX package's ``method="cosearch"`` inner engine comes with
-ROADMAP.md A.5.
+With ``method="cosearch"`` each tenant's region runs the fused co-search
+(:func:`.sweep.cosearch_sweep`, torch backend only), and a record's diag
+gene folds into the hardware its tenant is scored on.
 """
 from __future__ import annotations
 
@@ -392,10 +393,6 @@ def solve_multitenant(
     if len(tasks) > hw.X:
         raise ValueError(f"{len(tasks)} tenants need {len(tasks)} row "
                          f"bands but the grid has X={hw.X} rows")
-    if cfg.method == "cosearch":
-        raise NotImplementedError(
-            "MultiTenantConfig(method='cosearch') needs the port's "
-            "co-search (ROADMAP.md A.5)")
     hw.validate()
 
     assignments = band_assignments(hw.X, len(tasks),

@@ -38,9 +38,33 @@ import torch
 
 from ..device import resolve_device
 from ..kernels.sgs import ops
-from .pipelining import chain_priorities
+from .pipelining import chain_priorities as host_chain_priorities
 
-__all__ = ["schedule_batch", "sgs_instance"]
+__all__ = ["chain_priorities", "schedule_batch", "sgs_instance",
+           "sgs_makespan"]
+
+
+def chain_priorities(dur: torch.Tensor) -> torch.Tensor:
+    """Device form of :func:`.pipelining.chain_priorities` over the last
+    axis (``[..., L]``): the reversed cumulative sum, for callers that
+    build durations on the device (the co-search's fused fitness). The
+    counterpart of the JAX package's ``chain_priorities_jnp``;
+    :func:`schedule_batch` keeps the host form so its schedules stay
+    bit-identical to the serial engine's."""
+    return torch.flip(torch.cumsum(torch.flip(dur, (-1,)), -1), (-1,))
+
+
+def sgs_makespan(dur: torch.Tensor, batch: int) -> torch.Tensor:
+    """Makespans ``[R]`` of ``R`` chain instances ``dur [R, L]`` (float64,
+    on any device) pipelined over ``batch`` samples: one call of
+    :func:`repro_torch.kernels.sgs.ops.sgs_batch` with device-side
+    priorities — on the card one kernel launch, no host copy and no
+    sync. The durations are taken as they are (not clamped), as in the
+    JAX package's fused ``sgs_instance(with_starts=False)``."""
+    dur = dur.contiguous()
+    makespan, _ = ops.sgs_batch(dur, chain_priorities(dur).contiguous(),
+                                int(batch))
+    return makespan
 
 
 def _sgs(dur, prio, *, batch: int, device):
@@ -82,7 +106,7 @@ def schedule_batch(segments_grid: np.ndarray, batch: int, device=None,
     resolve_device(device)
     if L == 0 or batch == 0:
         return {"makespan": np.zeros(G), "starts": np.zeros((G, batch, L))}
-    prio = np.stack([chain_priorities(d) for d in dur])
+    prio = np.stack([host_chain_priorities(d) for d in dur])
     if sweep_shard.resolve_devices(devices, G) == "sharded":
         makespan, starts = sweep_shard.sharded_grid_call(
             functools.partial(_sgs, batch=batch), (dur, prio),

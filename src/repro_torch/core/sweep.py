@@ -31,6 +31,10 @@ This module turns those hand-rolled Python loops into:
     same-mesh-shape nets run through one
     :func:`.netsim_torch.simulate_pull_batch` call (one launch of the
     hand-written waterfilling kernel on the card), with cached records;
+  * :func:`cosearch_sweep` — the fused joint search (DESIGN.md §16):
+    same-shape points evolve as islands of one co-search
+    (:func:`.cosearch.cosearch_islands`), also reachable as
+    ``solve_grid(method="cosearch")``;
   * :class:`MultiTenantPoint` / :func:`multitenant_sweep` — multi-tenant
     placement (DESIGN.md §18): several tasks on one package, searched
     by :func:`.multitenant.solve_multitenant`, also reachable as
@@ -64,7 +68,7 @@ Two execution knobs ride on every sweep (DESIGN.md §15):
     seconds) -> bool``; a chunk it flags is reported on stderr.
 
 The torch paths run on ``device`` (``None``: the card, raising without
-one). The JAX package's co-search sweep comes with ROADMAP.md A.5.
+one).
 
 Typical use (LS baselines for one figure)::
 
@@ -95,6 +99,7 @@ __all__ = [
     "grid",
     "run_grid",
     "solve_grid",
+    "cosearch_sweep",
     "netsim_sweep",
     "multitenant_sweep",
     "pipeline_sweep",
@@ -620,6 +625,7 @@ def _solver_fingerprint(pt: EvalPoint, method: str, backend,
 
 
 def _copy_solver_record(rec):
+    from .cosearch import CoSearchResult
     from .ga import GAResult
     from .miqp import MIQPResult
     from .multitenant import MultiTenantResult
@@ -629,6 +635,20 @@ def _copy_solver_record(rec):
         return dataclasses.replace(rec)   # all fields immutable scalars
     if isinstance(rec, MultiTenantResult):
         return rec.copy()
+    if isinstance(rec, CoSearchResult):
+        return CoSearchResult(
+            partition=rec.partition.copy(),
+            redist_mask=rec.redist_mask.copy(),
+            diagonal=rec.diagonal,
+            seg_mask=rec.seg_mask.copy(),
+            objective=rec.objective,
+            edp=rec.edp,
+            latency=rec.latency,
+            energy=rec.energy,
+            front={k: v.copy() for k, v in rec.front.items()},
+            history=rec.history.copy(),
+            evaluations=rec.evaluations,
+        )
     if isinstance(rec, MIQPResult):
         return MIQPResult(
             partition=rec.partition.copy(),
@@ -664,7 +684,9 @@ def solve_grid(
 ) -> list:
     """Run one solver search per point; returns records aligned with
     ``points`` — ``GAResult`` for ``method="ga"`` (DESIGN.md §10),
-    ``MIQPResult`` for ``method="miqp"`` (DESIGN.md §12).
+    ``MIQPResult`` for ``method="miqp"`` (DESIGN.md §12),
+    ``CoSearchResult`` for ``method="cosearch"`` (DESIGN.md §16, routed
+    to :func:`cosearch_sweep`).
 
     Torch backend: uncached points are grouped by shape signature —
     (n_ops, X, Y, n_entrances, options) — and each group batches through
@@ -691,13 +713,14 @@ def solve_grid(
 
     ``device`` (``None``: the config's) is where the torch backend runs.
     ``devices`` / ``checkpoint`` / ``straggler`` follow the §15 contract
-    (module docstring); ``devices=None`` defers to ``cfg.devices``.
-    The JAX package's ``method="cosearch"`` comes with ROADMAP.md A.5."""
-    if method == "cosearch":
-        raise NotImplementedError(
-            "solve_grid(method='cosearch') needs the port's co-search "
-            "(ROADMAP.md A.5)")
+    (module docstring); ``devices=None`` defers to ``cfg.devices``."""
     _check_devices(devices)
+    if method == "cosearch":
+        return cosearch_sweep(points, objective=objective, cfg=cfg,
+                              backend=backend, cache=cache,
+                              devices=devices, checkpoint=checkpoint,
+                              checkpoint_every=checkpoint_every,
+                              straggler=straggler, device=device)
     if method == "multitenant":
         return multitenant_sweep(points, objective=objective, cfg=cfg,
                                  backend=backend, cache=cache,
@@ -811,6 +834,97 @@ def _solve_grid_miqp(points, objective, cfg, backend, cache,
                 points[idxs[0]].options, objective, cfg)
             for i, out in zip(idxs, outs):
                 records[i] = out
+
+    if cache:
+        for i in todo:
+            _CACHE[fps[i]] = _copy_solver_record(records[i])
+    return records
+
+
+# ------------------------------------------------- batched co-search
+def cosearch_sweep(
+    points: Sequence[EvalPoint],
+    objective: str = "edp",
+    cfg=None,
+    backend: str = "torch",
+    cache: bool = True,
+    devices: str | None = None,
+    checkpoint=None,
+    checkpoint_every: int = 8,
+    straggler=None,
+    device=None,
+) -> list:
+    """Run one fused joint search (partition × diagonal links × pipeline
+    segmentation, DESIGN.md §16) per point; returns
+    :class:`.cosearch.CoSearchResult` records aligned with ``points`` —
+    also reachable as ``solve_grid(method="cosearch")``.
+
+    Uncached points are grouped by shape signature — (n_ops, X, Y,
+    n_entrances, options) — and each group evolves as islands of one
+    batched co-search (:func:`.cosearch.cosearch_islands`) on ``device``
+    (``None``: the config's, and its ``None`` the card). A point's
+    record is identical solo or batched (island draws depend only on
+    ``cfg.seed``, budgets are deterministic counts), so the §9 cache
+    contract holds: records are method-tagged ``"cosearch"`` and keyed
+    by the full frozen :class:`.cosearch.CoSearchConfig` and the device
+    type.
+
+    The diag gene *searches* the link axis, so ``pt.hw.diagonal_links``
+    is normalized to ``False`` before fingerprinting and solving — plain
+    and diagonal variants of the same mesh share one record.
+    ``pt.partition`` / ``pt.redist_mask`` are ignored, like
+    :func:`solve_grid`. Only the torch backend exists (the fitness
+    chains the device engines end to end); ``backend="auto"`` resolves
+    to it.
+
+    ``devices`` (DESIGN.md §15) splits each group's island axis —
+    result-neutral and fingerprint-invisible; ``None`` defers to
+    ``cfg.devices``. ``checkpoint`` / ``checkpoint_every`` /
+    ``straggler`` behave exactly like :func:`solve_grid`."""
+    from .cosearch import CoSearchConfig, cosearch_islands
+
+    _check_devices(devices)
+    if cfg is None:
+        cfg = CoSearchConfig()
+    if not isinstance(cfg, CoSearchConfig):
+        raise TypeError(f"cosearch_sweep needs a CoSearchConfig, "
+                        f"got {type(cfg).__name__}")
+    if backend == "auto":
+        backend = "torch"
+    if backend != "torch":
+        raise ValueError(f"unknown backend {backend!r} for cosearch; "
+                         f"the fused fitness only exists on 'torch' "
+                         f"('auto' resolves to it)")
+    if device is not None:
+        cfg = dataclasses.replace(cfg, device=device)
+    if devices is not None:
+        cfg = dataclasses.replace(cfg, devices=devices)
+    if checkpoint is not None:
+        return _checkpointed(
+            points, checkpoint, checkpoint_every, cache, straggler,
+            lambda c: cosearch_sweep(c, objective, cfg, backend=backend,
+                                     cache=True))
+    key = _backend_key(backend, cfg.device)
+    norm = [dataclasses.replace(
+        pt, hw=dataclasses.replace(pt.hw, diagonal_links=False))
+        for pt in points]
+    records: list = [None] * len(points)
+    todo: list[int] = []
+    fps: list[tuple | None] = [None] * len(points)
+    for i, pt in enumerate(norm):
+        if cache:
+            _lookup(fps, records, todo, i,
+                    _solver_fingerprint(pt, "cosearch", key, objective,
+                                        cfg))
+        else:
+            todo.append(i)
+
+    for idxs in _shape_groups(norm, todo).values():
+        outs = cosearch_islands([norm[i].task for i in idxs],
+                                [norm[i].hw for i in idxs],
+                                norm[idxs[0]].options, objective, cfg)
+        for i, out in zip(idxs, outs):
+            records[i] = out
 
     if cache:
         for i in todo:

@@ -39,15 +39,18 @@ sweep-cache fingerprints therefore normalize the ``devices`` field away
 (:func:`.sweep._strip_devices`): one cache serves all three modes.
 ``tests/test_torch_sweep_shard.py`` pins the contract.
 
-The shards run one after another from the calling thread. Kernel
-launches are asynchronous, so shards on different cards overlap as far
-as the inner function does not wait for its device; an engine that
-syncs (the GA once a chunk, every engine when it copies its results
-out) serializes there.
+Every shard runs on a host thread of its own (one per mesh entry, under
+``torch.cuda.device(dev)`` for a card), so all shards are issued before
+any of them syncs: an engine that waits for its device (the GA and the
+co-search once a chunk, every engine when it copies its results out)
+holds up only its own shard, as JAX's single ``shard_map`` program
+does. Results are gathered in mesh order, and the first failing
+shard's exception is raised.
 """
 from __future__ import annotations
 
 import contextlib
+import threading
 from typing import Sequence
 
 import numpy as np
@@ -177,8 +180,10 @@ def sharded_grid_call(inner, args: tuple, batched: tuple, n_points: int,
     the grid axis first. ``mesh`` is a sequence of ``torch.device``
     (``None``: :func:`grid_mesh`, every local card). The grid axis is
     padded to a multiple of the mesh size with copies of row 0, each
-    shard runs on its device, the outputs are concatenated on the first
-    device (numpy outputs on the host) and sliced back to ``n_points``."""
+    shard runs on its device from a thread of its own (all issued before
+    any syncs), the outputs are concatenated on the first device (numpy
+    outputs on the host) in mesh order and sliced back to
+    ``n_points``; the first failing shard's exception is raised."""
     mesh = grid_mesh() if mesh is None else [torch.device(d) for d in mesh]
     if not mesh:
         raise RuntimeError("sharded_grid_call: the mesh is empty (no "
@@ -189,13 +194,31 @@ def sharded_grid_call(inner, args: tuple, batched: tuple, n_points: int,
         args = tuple(_map(lambda a: _pad0(a, pad), x) if b else x
                      for x, b in zip(args, batched))
     per = (n_points + pad) // k
-    outs = []
-    for s, dev in enumerate(mesh):
-        lo, hi = s * per, (s + 1) * per
-        shard = tuple(_map(lambda a: _on(a[lo:hi], dev), x) if b
-                      else _map(lambda a: _on(a, dev), x)
-                      for x, b in zip(args, batched))
-        outs.append(inner(*shard, device=dev))
+    outs: list = [None] * k
+    errors: list = [None] * k
+
+    def run(s: int, dev: torch.device) -> None:
+        try:
+            with (torch.cuda.device(dev) if dev.type == "cuda"
+                  else contextlib.nullcontext()):
+                lo, hi = s * per, (s + 1) * per
+                shard = tuple(_map(lambda a: _on(a[lo:hi], dev), x) if b
+                              else _map(lambda a: _on(a, dev), x)
+                              for x, b in zip(args, batched))
+                outs[s] = inner(*shard, device=dev)
+        except BaseException as e:        # re-raised on the caller's thread
+            errors[s] = e
+
+    threads = [threading.Thread(target=run, args=(s, dev),
+                                name=f"shard-{s}", daemon=True)
+               for s, dev in enumerate(mesh)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for e in errors:
+        if e is not None:
+            raise e
     out = _gather(outs, mesh[0])
     if pad:
         out = _map(lambda a: a[:n_points], out)

@@ -5,10 +5,9 @@
 An optimization request is one point of the same design space the
 batched sweep engine (:mod:`repro_torch.core.sweep`, DESIGN.md §9)
 already drives: an evaluation (``eval_sweep``), a solver search
-(``solve_grid`` — GA, MIQP-lattice, or a multi-tenant placement of
-DESIGN.md §18), or an RCPSP pipelining instance (``pipeline_sweep``).
-The JAX package's fused co-search (``method="cosearch"``) comes with
-ROADMAP.md A.5: the firewall rejects it per request. The server
+(``solve_grid`` — GA, MIQP-lattice, the fused co-search of DESIGN.md
+§16, or a multi-tenant placement of DESIGN.md §18), or an RCPSP
+pipelining instance (``pipeline_sweep``). The server
 coalesces queued requests whose *call key* — (kind, method, objective,
 solver config, backend) — is identical into ONE sweep call; the sweep
 engine then shape-groups that call into single batched calls (one
@@ -34,6 +33,7 @@ from typing import Any
 import numpy as np
 
 from ..core import sweep
+from ..core.cosearch import CoSearchConfig
 from ..core.evaluator import EvalOptions
 from ..core.ga import GAConfig
 from ..core.miqp import MIQPConfig
@@ -76,8 +76,10 @@ class OptRequest:
     ``kind="eval"``     → ``point`` is a :class:`~repro.core.sweep.
     EvalPoint`, served by ``eval_sweep`` (objective/method/cfg unused).
     ``kind="solve"``    → ``point`` is an ``EvalPoint`` whose partition
-    is ignored; ``method`` picks GA or MIQP-lattice, ``cfg`` the frozen
-    solver config, ``objective`` the fitness; ``method="multitenant"``
+    is ignored; ``method`` picks GA, MIQP-lattice or the co-search
+    (``"cosearch"``, torch backend only — a ``CoSearchResult``), ``cfg``
+    the frozen solver config, ``objective`` the fitness;
+    ``method="multitenant"``
     takes a :class:`~repro_torch.core.sweep.MultiTenantPoint` and a
     ``MultiTenantConfig``.
     ``kind="pipeline"`` → ``point`` is a :class:`~repro.core.sweep.
@@ -145,15 +147,18 @@ class OptRequest:
             if self.objective not in OBJECTIVES:
                 raise BadRequest(f"unknown objective {self.objective!r}; "
                                  f"one of {OBJECTIVES}")
-            if self.method == "cosearch":
-                raise BadRequest("method='cosearch' needs the port's "
-                                 "co-search (ROADMAP.md A.5)")
             want = {"ga": GAConfig, "miqp": MIQPConfig,
+                    "cosearch": CoSearchConfig,
                     "multitenant": MultiTenantConfig}[self.method]
             if self.cfg is not None and not isinstance(self.cfg, want):
                 raise BadRequest(
                     f"cfg for method={self.method!r} must be "
                     f"{want.__name__}, got {type(self.cfg).__name__}")
+            if self.method == "cosearch" and self.backend == "numpy":
+                # The joint search is one fused device objective —
+                # there is no host engine to serve it on.
+                raise BadRequest("method='cosearch' needs backend "
+                                 "'torch' (or 'auto'); got 'numpy'")
 
     def _validate_eval_point(self) -> None:
         pt = self.point

@@ -395,11 +395,43 @@ def test_solve_multitenant_rejects_bad_inputs():
 
 
 def test_cosearch_inner_engine_names_a5():
-    with pytest.raises(NotImplementedError, match="A.5"):
-        t_mt.solve_multitenant(
-            tenants("torch"), two_class_hw("torch"),
-            cfg=t_mt.MultiTenantConfig(method="cosearch"),
-            backend="numpy")
+    """The co-search inner engine (torch backend on the CPU; the JAX
+    package's co-search has no numpy engine either): a two-tenant solve
+    equals its decode — the winning assignment's co-search records,
+    each diag gene folded into its tenant's hardware — scored by the
+    numpy evaluator under the same contention, at rtol 1e-9."""
+    from repro_torch.core.cosearch import CoSearchConfig
+
+    tasks, hw = tenants("torch"), two_class_hw("torch")
+    inner = CoSearchConfig(population=16, generations=4, patience=4,
+                           seed_steps=2, seed_starts=2, archive_size=4,
+                           device="cpu")
+    cfg = t_mt.MultiTenantConfig(method="cosearch", cfg=inner)
+    opts = t_ev.EvalOptions()
+    res = t_mt.solve_multitenant(tasks, hw, objective="edp", cfg=cfg,
+                                 backend="torch", device="cpu")
+    assert res.objective <= res.baseline["edp"]
+    regions = [t_mt.region_hw(hw, x0, x1) for x0, x1 in res.assignment]
+    recs = t_sweep.solve_grid(
+        [t_sweep.EvalPoint(t, r, opts) for t, r in zip(tasks, regions)],
+        "edp", inner, method="cosearch", device="cpu")
+    slows = t_mt._contention_slowdowns(tasks, res.assignment, hw)
+    for t, region, rec, s, part, d in zip(tasks, regions, recs, slows,
+                                          res.partitions, res.per_tenant):
+        dpart, rd, score_hw, _ = t_mt._decode_schedule(rec, "cosearch",
+                                                       region)
+        assert score_hw.diagonal_links == rec.diagonal
+        np.testing.assert_array_equal(dpart.Px, part.Px)
+        np.testing.assert_array_equal(dpart.Py, part.Py)
+        ev = t_ev.Evaluator(t, score_hw, opts,
+                            backend="numpy").evaluate(dpart, rd)
+        assert d["slowdown"] == s
+        np.testing.assert_allclose(
+            [d["latency"], d["energy"]],
+            [ev.latency + float(ev.t_in.sum()) * (s - 1.0), ev.energy],
+            rtol=TORCH_RTOL)
+    with pytest.raises(ValueError, match="torch"):
+        t_mt.solve_multitenant(tasks, hw, cfg=cfg, backend="numpy")
 
 
 def test_torch_backend_needs_a_card_or_cpu():

@@ -292,15 +292,31 @@ def test_torch_without_device_raises_here(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         t_sweep.pipeline_sweep([t_sweep.PipelinePoint(
             [("a", 1.0, 2.0, 3.0)], 2)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        t_api.cosearch(task, hw)
 
 
 def test_narrowings_name_their_roadmap_item():
-    """What stays narrowed names its item (A.5); ``devices="sharded"``
-    and ``method="multitenant"`` are no narrowings any more."""
+    """No narrowing is left on these paths: ``method="cosearch"``
+    returns ``CoSearchResult`` records, and ``devices="sharded"`` and
+    ``method="multitenant"`` work."""
+    from repro_torch.core.cosearch import CoSearchConfig, CoSearchResult
+
     task, hw = _task("torch", "alexnet"), _hw("torch", "A4hbm")
     point = [t_sweep.EvalPoint(task, hw)]
-    with pytest.raises(NotImplementedError, match="A.5"):
-        t_sweep.solve_grid(point, "edp", method="cosearch")
+    cs_cfg = CoSearchConfig(population=8, generations=2, patience=2,
+                            seed_steps=1, seed_starts=1, archive_size=4,
+                            device="cpu")
+    recs = t_sweep.solve_grid(
+        point + [t_sweep.EvalPoint(task, dataclasses.replace(
+            hw, diagonal_links=not hw.diagonal_links))], "edp", cs_cfg,
+        method="cosearch", cache=False)
+    assert len(recs) == 2
+    for rec in recs:
+        assert isinstance(rec, CoSearchResult)
+        rec.partition.validate(task)
+        assert rec.objective == rec.edp > 0
+    assert recs[0].edp == recs[1].edp     # the diag gene searches links
     rec, = t_sweep.solve_grid(
         [t_sweep.MultiTenantPoint((task,), hw)], "edp",
         t_mt.MultiTenantConfig(method="uniform"), method="multitenant",

@@ -297,18 +297,39 @@ def test_bad_requests_rejected_not_fatal():
 
 
 def test_cosearch_request_rejected_naming_a5_cohort_served():
-    """The port has no co-search yet: the firewall rejects the request
-    on its own future; the cohort's requests are served."""
+    """A ``method="cosearch"`` request is served bit for bit its solo
+    ``cosearch_sweep``; one on the numpy backend (co-search has no host
+    engine) is rejected with a BadRequest on its own future, and its
+    cohort is still served."""
+    from repro_torch.core.cosearch import CoSearchConfig
+
+    cs_cfg = CoSearchConfig(population=8, generations=3, patience=3,
+                            seed_steps=2, seed_starts=2, archive_size=4,
+                            device="cpu")
     pt = sweep.EvalPoint(toy_task(2), HW)
-    bad = OptRequest("solve", pt, objective="edp", method="cosearch")
-    good = OptRequest("solve", pt, objective="edp", cfg=GA_CFG,
-                      backend="numpy")
+    solo = sweep.cosearch_sweep([pt], "edp", cs_cfg, cache=False)[0]
+    sweep.clear_cache()
+    good = OptRequest("solve", pt, objective="edp", method="cosearch",
+                      cfg=cs_cfg)
+    bad = OptRequest("solve", pt, objective="edp", method="cosearch",
+                     cfg=cs_cfg, backend="numpy")
+    ga = OptRequest("solve", pt, objective="edp", cfg=GA_CFG,
+                    backend="numpy")
     srv = server()
-    fb, fg = srv.submit(bad), srv.submit(good)
+    fb, fg, fga = srv.submit(bad), srv.submit(good), srv.submit(ga)
     srv.start()
-    with pytest.raises(BadRequest, match="A.5"):
+    with pytest.raises(BadRequest, match="needs backend 'torch'"):
         fb.result(timeout=WAIT)
-    assert fg.result(timeout=WAIT).objective > 0
+    served = fg.result(timeout=WAIT)
+    assert served.objective == solo.objective
+    assert (served.edp, served.latency, served.energy, served.diagonal) \
+        == (solo.edp, solo.latency, solo.energy, solo.diagonal)
+    np.testing.assert_array_equal(served.partition.Px, solo.partition.Px)
+    np.testing.assert_array_equal(served.seg_mask, solo.seg_mask)
+    np.testing.assert_array_equal(served.history, solo.history)
+    for k in solo.front:
+        np.testing.assert_array_equal(served.front[k], solo.front[k])
+    assert fga.result(timeout=WAIT).objective > 0
     assert srv.stats()["rejected"] == 1
     srv.kill()
 

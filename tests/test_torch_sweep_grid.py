@@ -176,7 +176,7 @@ def test_solve_grid_ga_caches_per_backend_and_device():
     assert not np.array_equal(c.partition.Px, d.partition.Px)
 
 
-def test_solve_grid_validation_and_narrowings():
+def test_solve_grid_validation_and_narrowings(monkeypatch):
     pts = solver_points("torch")[:1]
     cfg = t_ga.GAConfig(**GA)
     with pytest.raises(ValueError, match="backend"):
@@ -188,8 +188,19 @@ def test_solve_grid_validation_and_narrowings():
         t_sweep.solve_grid(pts, "latency", cfg, method="anneal")
     with pytest.raises(ValueError, match="backend"):
         t_sweep.eval_sweep(pts, backend="auto")
-    with pytest.raises(NotImplementedError, match="A.5"):
-        t_sweep.solve_grid(pts, "edp", method="cosearch")
+    # method="cosearch" dispatches to cosearch_sweep with every knob.
+    seen = []
+    monkeypatch.setattr(t_sweep, "cosearch_sweep",
+                        lambda *a, **kw: seen.append((a, kw)) or ["rec"])
+    assert t_sweep.solve_grid(pts, "edp", "cfg", method="cosearch",
+                              cache=False, devices="single",
+                              device="cpu") == ["rec"]
+    (args, kw), = seen
+    assert args == (pts,)
+    assert kw == dict(objective="edp", cfg="cfg", backend="torch",
+                      cache=False, devices="single", checkpoint=None,
+                      checkpoint_every=8, straggler=None, device="cpu")
+    monkeypatch.undo()
     with pytest.raises(TypeError, match="MultiTenantConfig"):
         t_sweep.solve_grid(pts, "edp", cfg, method="multitenant")
     with pytest.raises(ValueError, match="devices"):

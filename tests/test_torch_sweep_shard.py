@@ -9,6 +9,7 @@ the row-0 padding runs, and one cache for every mode. The sharded
 records are also held to the JAX package's numpy engines, on the same
 seeded inputs, at the torch backend's contract (rtol 1e-9)."""
 import dataclasses
+import threading
 
 import numpy as np
 import pytest
@@ -144,6 +145,36 @@ def test_sharded_grid_call_pads_with_row_zero_and_gathers(k, G):
     assert [s for s, _ in seen] == [per] * k
     np.testing.assert_array_equal(out["a"], a * 2.0)
     torch.testing.assert_close(out["t"], b["t"] + 1.0, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("k", (2, 3))
+def test_shards_are_all_issued_before_any_syncs(k):
+    """Every shard runs on a thread of its own: a fake engine that waits
+    on a barrier of the whole mesh (as an engine waits for its device)
+    only gets through if all shards run at once; run in turn, the first
+    would time out. Results come back in mesh order; a failing shard's
+    exception is raised, the first in mesh order."""
+    barrier = threading.Barrier(k, timeout=5)
+    a = np.arange(4.0 * k).reshape(2 * k, 2)
+
+    def inner(x, *, device):
+        barrier.wait()
+        return {"x": x * 2.0, "thread": np.array(
+            [threading.get_ident()] * len(x))}
+
+    out = sweep_shard.sharded_grid_call(inner, (a,), (True,), 2 * k,
+                                        mesh=["cpu"] * k)
+    np.testing.assert_array_equal(out["x"], a * 2.0)
+    assert len(set(out["thread"].tolist())) == k
+
+    def failing(x, *, device):
+        if x[0, 0] >= 4.0:
+            raise RuntimeError(f"shard at {x[0, 0]:.0f} failed")
+        return x
+
+    with pytest.raises(RuntimeError, match="shard at 4 failed"):
+        sweep_shard.sharded_grid_call(failing, (a,), (True,), 2 * k,
+                                      mesh=["cpu"] * k)
 
 
 # --------------------------------------------------- devices validation
