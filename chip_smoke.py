@@ -9,23 +9,27 @@ Phases, each printing its lines; any failure exits nonzero:
      together; registers and spills of each kernel, and for every
      library each instantiation's registers, spill bytes and HMMA
      (tensor-core) instructions: a bf16 kernel without HMMA, or a bf16
-     kernel spilling at a serve path's shape (flash at head dims 64 and
-     160, SSD at state dim 64, WKV-6 at head dim 64), fails.
+     kernel spilling at a serve path's shape (flash at head dims 64,
+     128, 160, 256 and MLA's 288/256, SSD at state dim 64, WKV-6 at head
+     dim 64), fails.
   3. kernels: each kernel (flash attention, WKV-6, the Mamba-2 SSD scan,
      the GEMM) against its plain PyTorch version on the card at every
      tested variant (the calibration pass's sample shapes among them)
      and, in f32 and bf16, at its main path's shape, where it is then
      timed (flash also checked and timed at zamba2-2.7b's
-     shared-attention shape in bf16; the GEMM at the calibration's
+     shared-attention shape in bf16, at minicpm3-4b's MLA latent head
+     in bf16 and f32 and at gemma2-2b's long-wave local layer in bf16,
+     beside SDPA, where limits set from the H100's readings must also
+     reject planted faults; the GEMM at the calibration's
      largest size and at zamba2-2.7b's in_proj shape); every kernel, and
      the PyTorch call for the same function where there is one, also as
      runs of back-to-back calls.
   4. calibrate + plan: with every launch count at 0, the full calibration
      pass (profile_kernels() on the card) must launch each kernel once
      per sample and warm-up or timed call, and no other; the profile
-     survives the store; then each served arch is planned on meshes
-     (1, 1) and (2, 2) with the calibrated profile and with the data
-     sheet's constants.
+     survives the store; then each of the seven served archs is planned
+     on meshes (1, 1) and (2, 2) with the calibrated profile and with
+     the data sheet's constants.
   5. serve: full-width smollm-360m, rwkv6-3b and zamba2-2.7b (seeded
      random weights), each serving 8 requests of 900-1024 prompt tokens
      through ServeEngine. Every launch count is set to 0 just before a
@@ -34,7 +38,19 @@ Phases, each printing its lines; any failure exits nonzero:
      per prefill wave, the other kernels never. The first wave's prefill
      logits must match the same model with the kernel's plain version;
      for rwkv6-3b and zamba2-2.7b also the recurrent states that prefill
-     leaves and the logits of the decode step after it.
+     leaves and the logits of the decode step after it. Then the model
+     zoo at published widths, the flash kernel once per layer and wave:
+     internlm2-20b (48 layers, 4 requests), gemma2-2b (26 layers, 8
+     requests and a wave of 2 past its 4096 window, whose last 256
+     positions' logits are held too), minicpm3-4b (62 layers, MLA's
+     latent head, 8 requests) and mixtral-8x22b (4 of 56 layers: 141B
+     parameters do not fit one card; 4 requests, T 4096 > 256, so its
+     MoE drops routes): each layer's attention, kernel against plain on
+     its captured inputs, element by element, with planted faults (a
+     lost KV tile, a window one tile too wide) that the same limit must
+     reject; the prefill logits against plain within LOGIT_REL_TOL or
+     LOGIT_SPREAD_FACTOR times the plain version's own spread (mixtral's
+     reported, with the routes that differ end to end and the drops).
   6. optimize: the paper's front door (repro_torch.core.api.optimize) on
      ViT-B/16 over a 4x4 type-A HBM MCM, the four Table-3 schemes on
      the latency objective and pipelining at batch 8. With the default
@@ -115,6 +131,7 @@ result. Imports nothing of JAX.
 from __future__ import annotations
 
 import collections
+import functools
 import json
 import math
 import re
@@ -168,6 +185,9 @@ VARIANTS = [
     # the calibration pass's samples: causal, H = KV = 4, head dim 64
     ("calib_s256_d64", dict(causal=True), (1, 256, 256, 4, 4, 64, 64)),
     ("calib_b2_s512_d64", dict(causal=True), (2, 512, 512, 4, 4, 64, 64)),
+    # minicpm3-4b's MLA latent head: KV 1, Dk 288, Dv 256, 1/sqrt(96)
+    ("mla_dk288_dv256", dict(causal=True, scale=96 ** -0.5),
+     (2, 130, 130, 40, 1, 288, 256)),
 ]
 TOL = {torch.float32: dict(rtol=3e-5, atol=1.2e-4),
        torch.bfloat16: dict(rtol=2e-2, atol=8e-2)}
@@ -175,6 +195,30 @@ SMOLLM_SHAPE = (4, 1024, 1024, 15, 5, 64, 64)
 # zamba2-2.7b's shared attention in prefill (window 4096 > S: causal).
 ZAMBA_ATTN_SHAPE = (4, 1024, 1024, 32, 32, 160, 160)
 ZAMBA_WINDOW = 4096
+# minicpm3-4b's MLA prefill (the absorbed latent head, scale
+# 1/sqrt(qk_nope + qk_rope)), in bf16 and f32; gemma2-2b's local layers
+# in its long wave (2 prompts past the window), bf16. (B, Sq, Skv, H, KV,
+# Dk, Dv), kwargs. In f32 the kernel is held to TOL[float32]; in bf16 to
+# ZOO_BF16_TOL, set as ZAMBA_BF16_TOL is: rtol one bf16 step, atol ~2.5x
+# the H100 reading beyond rtol (MLA 2.52e-3, gemma2 2.28e-3: the kernel
+# rounds P to bf16 for the tensor cores, which shows where weighted
+# values cancel).
+# A typical |o| is ~0.1 at the MLA shape (~50 keys in view) and ~0.03 at
+# gemma2's (~1500), so TOL[bfloat16]'s atol of 8e-2 would hide a lost
+# tile. Each check also plants the faults of planted_faults and must
+# reject them: on the H100 a dropped tile reads 0.89 (MLA) and 4.1e-2
+# (gemma2) beyond rtol, gemma2's window one tile wider 2.9e-2.
+MLA_SHAPE = (4, 1024, 1024, 40, 1, 288, 256)
+MLA_KW = dict(causal=True, scale=96 ** -0.5)
+GEMMA2_SHAPE = (2, 4608, 4608, 8, 4, 256, 256)
+GEMMA2_KW = dict(causal=True, window=4096, softcap=50.0)
+ZOO_BF16_TOL = dict(rtol=1e-2, atol=6e-3)
+# Planted faults (planted_faults): the last FAULT_ROWS query rows
+# recomputed with a tile of FAULT_TILE keys dropped, or the window one
+# tile too wide. FAULT_TILE is the bf16 kernel's KV tile at head dims over
+# 160 (64 below), so a fault is never larger than a lost tile.
+FAULT_ROWS = 64
+FAULT_TILE = 32
 # At zamba2's shape the bf16 kernel runs its (b, h) pairs in 4 groups
 # whose K and V fit in L2 (no other shape here takes more than one). It is
 # held to a limit set as SMOLLM_BF16_TOL's: rtol one bf16 step; atol ~2.5x
@@ -289,7 +333,8 @@ IN_PROJ_BF16_RTOL = 2 ** -7
 # kernel are not on it.
 CALIB_LAUNCHES = {"gemm": 12, "flash_attention": 8, "wkv6": 8,
                   "ssm_scan": 8, "sgs_batch": 0, "netsim_waterfill": 0}
-SERVED = ("smollm-360m", "rwkv6-3b", "zamba2-2.7b")
+SERVED = ("smollm-360m", "rwkv6-3b", "zamba2-2.7b", "gemma2-2b",
+          "internlm2-20b", "minicpm3-4b", "mixtral-8x22b")
 
 
 def log(phase, msg):
@@ -362,8 +407,9 @@ def device_breakdown(fn):
 
 def attention_bound_ms(q, k, v, causal, window=None):
     """Least time on an H100 for this call: FLOPs of the (q, k) pairs
-    the masks keep (QKᵀ and PV) at the bf16 tensor-core peak, against
-    each input read once and the output written once at the HBM rate."""
+    the masks keep (QKᵀ and PV) at the peak of their type (bf16 on the
+    tensor cores, f32 on the CUDA cores), against each input read once
+    and the output written once at the HBM rate."""
     B, Sq, H, Dk = q.shape
     Skv, Dv = k.shape[1], v.shape[-1]
     qpos = np.arange(Sq)
@@ -373,7 +419,8 @@ def attention_bound_ms(q, k, v, causal, window=None):
     flops = 2.0 * B * H * pairs * (Dk + Dv)
     elt = q.element_size()
     nbytes = elt * (q.numel() + k.numel() + v.numel() + B * Sq * H * Dv)
-    t_ops, t_bytes = flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S
+    peak = H100_F32_FLOPS if q.dtype == torch.float32 else H100_BF16_FLOPS
+    t_ops, t_bytes = flops / peak, nbytes / H100_BYTES_PER_S
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
 
@@ -529,10 +576,14 @@ def hmma_counts(lib, bindir):
 
 
 # The bf16 instantiations that the serve paths launch, which must not
-# spill: flash at smollm-360m's and zamba2-2.7b's head dims, SSD at
-# zamba2-2.7b's state dim, WKV-6 at rwkv6-3b's head dim.
-SERVE_INSTANCES = {"flash_attention": ("flash_bf16_kernel<64>",
-                                       "flash_bf16_kernel<160>"),
+# spill: flash at smollm-360m's and zamba2-2.7b's head dims, at
+# internlm2-20b's and mixtral-8x22b's 128, gemma2-2b's 256 and
+# minicpm3-4b's MLA latent head (flash_bf16_kernel<DK, DV> takes the key
+# and value widths rounded up to 16), SSD at zamba2-2.7b's state dim,
+# WKV-6 at rwkv6-3b's head dim.
+SERVE_INSTANCES = {"flash_attention": tuple(
+    f"flash_bf16_kernel<{dk}, {dv}>" for dk, dv in (
+        (64, 64), (160, 160), (128, 128), (256, 256), (288, 256))),
                    "ssm_scan": ("ssd_bf16_kernel<64>",),
                    "wkv6": ("wkv6_bf16_kernel<64>",),
                    "gemm": ()}
@@ -658,6 +709,143 @@ def phase_kernels():
     zrow["tflops"] = flops / zrow["kernel_ms"] / 1e9
     log("kernels", "zamba2 shared-attention prefill shape "
         + json.dumps(zrow))
+    del q, k, v, qh, kh, vh
+    for label, shape, kw, tols in (
+            ("minicpm3 MLA", MLA_SHAPE, MLA_KW,
+             ((torch.bfloat16, ZOO_BF16_TOL),
+              (torch.float32, TOL[torch.float32]))),
+            ("gemma2 local layer, long wave", GEMMA2_SHAPE, GEMMA2_KW,
+             ((torch.bfloat16, ZOO_BF16_TOL),))):
+        for dtype, tol in tols:
+            log("kernels", f"flash_attention {label} prefill shape "
+                + json.dumps(flash_zoo_row(shape, dtype, kw, tol)))
+    return row
+
+
+def excess(got, want, rtol):
+    """The largest |got - want| beyond rtol * |want|: assert_close at
+    (rtol, atol) passes exactly when this is at most atol."""
+    got, want = got.float(), want.float()
+    return ((got - want).abs() - rtol * want.abs()).max().item()
+
+
+def attention_rows(q, k, v, kw, drop=None, window=None):
+    """The last FAULT_ROWS query rows of an attention with Sq == Skv,
+    dense in f32 and rounded to q's dtype: under kw's mask, or with a
+    planted fault (the keys in range ``drop`` masked out, or ``window``
+    in place of kw's)."""
+    B, S, H, Dk = q.shape
+    KV, Dv = k.shape[2], v.shape[-1]
+    rows = min(FAULT_ROWS, S)
+    qr = q[:, -rows:].float().reshape(B, rows, KV, H // KV, Dk)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qr, k.float())
+    s = s * (kw.get("scale") or Dk ** -0.5)
+    if kw.get("softcap"):
+        s = kw["softcap"] * torch.tanh(s / kw["softcap"])
+    qpos = torch.arange(S - rows, S, device=q.device)[:, None]
+    kpos = torch.arange(S, device=q.device)[None, :]
+    keep = kpos <= qpos if kw.get("causal", True) else kpos >= 0
+    window = window or kw.get("window")
+    if window:
+        keep = keep & (kpos > qpos - window)
+    if drop is not None:
+        keep = keep & ((kpos < drop.start) | (kpos >= drop.stop))
+    # The kernel's finite NEG_INF: a row whose keys a fault all drops
+    # (a window shorter than a tile) gets a value, not NaN.
+    p = torch.softmax(s.masked_fill(~keep, -2.0e38), dim=-1)
+    o = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
+    return o.reshape(B, rows, H, Dv).to(q.dtype)
+
+
+def planted_faults(q, k, v, kw, want, rtol):
+    """How far beyond rtol the last FAULT_ROWS rows of ``want`` (the
+    plain version's output) lie from: the same rows computed densely
+    ("dense", the control, which a limit must pass), the rows with a tile
+    of FAULT_TILE keys in the middle of the last row's view dropped, and,
+    where the window binds, the rows with the window one tile too wide
+    (faults, which a limit must reject)."""
+    S, window = k.shape[1], kw.get("window")
+    rows = want[:, -FAULT_ROWS:]
+    lo = max(0, S - window) if window else 0
+    t0 = (lo + S) // 2 // FAULT_TILE * FAULT_TILE
+    out = {"dense": excess(attention_rows(q, k, v, kw), rows, rtol),
+           "tile dropped": excess(attention_rows(
+               q, k, v, kw, drop=range(t0, t0 + FAULT_TILE)), rows, rtol)}
+    if window and S - FAULT_ROWS > window:
+        out["window one tile wider"] = excess(attention_rows(
+            q, k, v, kw, window=window + FAULT_TILE), rows, rtol)
+    return out
+
+
+def hold_planted(faults, atol, what):
+    """The control within atol; every planted fault beyond it."""
+    assert faults["dense"] <= atol, (
+        f"{what}: the dense control reads {faults['dense']:.3e} beyond "
+        f"rtol, over atol {atol:.3e}")
+    for name, e in faults.items():
+        assert name == "dense" or e > atol, (
+            f"{what}: planted fault '{name}' reads {e:.3e} beyond rtol, "
+            f"within atol {atol:.3e}: the limit would not catch it")
+
+
+def flash_zoo_row(shape, dtype, kw, tol):
+    """The kernel at a zoo model's prefill shape: held to its plain
+    version within ``tol``, which must reject the planted faults, and
+    timed beside its bound, the plain version and SDPA (which has no
+    soft-cap: for gemma2 it takes the window as a boolean mask and skips
+    the cap, a yardstick of nearby work; an SDPA error is written down
+    instead of a time)."""
+    from repro_torch.kernels.flash_attention.blockwise import \
+        blockwise_attention
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+
+    q, k, v = rand_qkv(shape, dtype, seed=102)
+    got = flash_attention(q, k, v, **kw)
+    want = blockwise_attention(q, k, v, **kw)
+    err = (got.float() - want.float()).abs().max().item()
+    beyond = excess(got, want, tol["rtol"])
+    faults = planted_faults(q, k, v, kw, want, tol["rtol"])
+    what = f"flash_attention {shape} {str(dtype)[6:]}"
+    log("kernels", f"{what}: max_abs_err {err:.3e}, beyond rtol "
+        f"{beyond:.3e} (limit {tol}); planted, beyond rtol: "
+        + ", ".join(f"{n} {e:.3e}" for n, e in faults.items()))
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    hold_planted(faults, tol["atol"], what)
+    del got, want
+    S, window = shape[1], kw.get("window")
+    mask = None
+    if window:
+        pos = torch.arange(S, device="cuda")
+        mask = (pos[None, :] <= pos[:, None]) & (
+            pos[None, :] > pos[:, None] - window)
+    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def library():
+        return sdpa(qh, kh, vh, attn_mask=mask, is_causal=mask is None,
+                    scale=kw.get("scale"), enable_gqa=True)
+    try:
+        library_ms, library_error = time_ms(library), None
+        library_burst = burst_ms(library)
+    except RuntimeError as e:
+        library_ms = library_burst = None
+        library_error = str(e).splitlines()[0][:200]
+
+    def kernel():
+        return flash_attention(q, k, v, **kw)
+    bound_ms, bound_by, flops, nbytes = attention_bound_ms(
+        q, k, v, True, window)
+    row = {"name": "flash_attention", "shape": list(shape),
+           "dtype": str(dtype)[6:], **kw,
+           "max_abs_err": err, "beyond_rtol": beyond, "limit": tol,
+           "planted_beyond_rtol": faults,
+           "kernel_ms": time_ms(kernel), "kernel_burst_ms": burst_ms(kernel),
+           "plain_ms": time_ms(lambda: blockwise_attention(q, k, v, **kw),
+                               reps=5),
+           "library_ms": library_ms, "library_burst_ms": library_burst,
+           "library_error": library_error, "bound_ms": bound_ms,
+           "bound_by": bound_by, "flops": flops, "bytes": nbytes}
+    row["tflops"] = flops / row["kernel_ms"] / 1e9
     return row
 
 
@@ -1282,6 +1470,279 @@ def phase_serve_zamba2():
     cfg32 = cfg.replace(dtype="float32")
     model32 = init_model(cfg32, seed=0, device="cuda")
     check_paths(cfg32, compare(model32, cfg32), False, ref, "SSM")
+    return counts
+
+
+# The model zoo's serve phases (phase 5, after zamba2-2.7b): arch ->
+# (layers served, or None for all; groups of requests as (shortest,
+# longest + 1, count) prompt tokens). The engine runs waves of 4 in
+# order: gemma2-2b's last wave holds 2 prompts past its 4096-token
+# window, so the local layers' window masks in the kernel and their ring
+# buffers wrap. mixtral-8x22b's 141B parameters do not fit one 80 GB card
+# in bf16: 4 of its 56 layers (~20 GB) serve at the published width.
+ZOO_SERVED = {
+    "internlm2-20b": (None, ((900, 1025, 4),)),
+    "gemma2-2b": (None, ((900, 1025, 8), (4200, 4601, 2))),
+    "minicpm3-4b": (None, ((900, 1025, 8),)),
+    "mixtral-8x22b": (4, ((900, 1025, 4),)),
+}
+ZOO_NEW_TOKENS = 16
+ZOO_LONG_TAIL = 256     # gemma2's long wave: logits compared at the last
+# Each layer's attention, kernel against plain on the inputs it was given
+# in the served model, element by element: within ATTN_RTOL (one bf16
+# step) of |out| plus ATTN_ATOL_RMS_V times the RMS of the layer's values
+# v (the kernel rounds each weight to bf16, an error of up to 2^-9 of
+# each weighted v, which shows where they cancel; the largest |out|, in
+# the early causal rows, would be no scale of it). On the H100 the
+# kernel's worst layer reads 3.42e-3 of RMS |v| beyond rtol and the least
+# planted fault 1.13e-2; the limit sits between them, 1.75x and 1.88x
+# from each (PERF.md), and every layer's planted faults must exceed it.
+ATTN_RTOL = 1e-2
+ATTN_ATOL_RMS_V = 6e-3
+# The prefill logits, kernel against plain, within the larger of
+# LOGIT_REL_TOL of the largest |logit| and LOGIT_SPREAD_FACTOR times the
+# plain version's own spread (at half its chunks): through 26-62 bf16
+# layers of random weights a one-step rounding of an attention output
+# grows, for the kernel and for the plain version in another order
+# alike. On the H100 the kernel's distance is at most 1.143 times the
+# spread (internlm2-20b, PERF.md), so 1.25 leaves a margin of ~9%.
+LOGIT_SPREAD_FACTOR = 1.25
+
+
+def _plain(scale=1):
+    """The plain blockwise attention, at the model's chunks divided by
+    ``scale``, called as the layers call ops.attention."""
+    from repro_torch.kernels.flash_attention import blockwise
+
+    def attention(q, k, v, q_chunk, kv_chunk, **kw):
+        return blockwise.blockwise_attention(
+            q, k, v, q_chunk=q_chunk // scale, kv_chunk=kv_chunk // scale,
+            **kw)
+    return attention
+
+
+def _prefill(model, cfg, toks, capacity, attention=None, tail=None):
+    """Prefill logits over the real vocabulary (of the last ``tail``
+    positions) with the kernel, or with ``attention`` in its place."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models import forward, init_caches
+
+    kernel_attention = ops.attention
+    ops.attention = attention or kernel_attention
+    try:
+        with torch.inference_mode():
+            logits, _ = forward(model, {"tokens": toks}, mode="prefill",
+                                caches=init_caches(cfg, toks.shape[0],
+                                                   capacity))
+    finally:
+        ops.attention = kernel_attention
+    if tail:
+        logits = logits[:, -tail:]
+    return logits[..., :cfg.vocab_size].float()
+
+
+def check_zoo_prefill(model, cfg, toks, capacity, what, tail=None):
+    """One prefill with the kernel, capturing every layer's attention
+    inputs, one with the plain attention and one with the plain attention
+    at half its chunks. (1) Each layer's attention, kernel against plain
+    on its captured inputs, element by element within ATTN_RTOL and
+    ATTN_ATOL_RMS_V; the same limit must reject the layer's planted
+    faults.
+    (2) The logits, kernel against plain, within LOGIT_REL_TOL of the
+    largest |logit| or, where larger, LOGIT_SPREAD_FACTOR times the
+    plain version's own spread. With MoE the logits are reported, not
+    held: a bf16 difference flips near-ties of the routers; the share of
+    (token, k) routes whose expert differs between the kernel's run and
+    the plain one, and the routes the capacity path drops, are reported.
+    Returns the kernel's logits."""
+    from repro_torch.kernels.flash_attention import blockwise, ops
+
+    kernel_attention = ops.attention
+    captured, run = [], ["kernel"]
+    routes = {"kernel": [], "plain": [], "half": []}
+
+    def capture(q, k, v, **kw):
+        captured.append((q.clone(), k.clone(), v.clone(), kw))
+        return kernel_attention(q, k, v, **kw)
+
+    def recorder(orig):
+        def route(xg, T, *args):
+            out = orig(xg, T, *args)
+            sel, ranks, C = out[2][:T], out[3][:T], out[4]
+            routes[run[0]].append((sel.clone(), ranks < C))
+            return out
+        return route
+    moes = [blk.moe for blk in model.blocks] if cfg.family == "moe" else []
+    for m in moes:
+        m.route = recorder(m.route)
+    try:
+        got = _prefill(model, cfg, toks, capacity, capture, tail)
+        run[0] = "plain"
+        want = _prefill(model, cfg, toks, capacity, _plain(), tail)
+        run[0] = "half"
+        alt = _prefill(model, cfg, toks, capacity, _plain(2), tail)
+    finally:
+        for m in moes:
+            del m.route         # back to the class's method
+    assert torch.isfinite(got).all(), "non-finite prefill logits"
+    assert got.shape == (toks.shape[0], tail or toks.shape[1],
+                         cfg.vocab_size)
+    assert len(captured) == cfg.n_layers
+    layers = []
+    for q, k, v, kw in captured:
+        with torch.inference_mode():
+            a = kernel_attention(q, k, v, **kw)
+            b = blockwise.blockwise_attention(q, k, v, **kw)
+            rms = v.float().pow(2).mean().sqrt().item()
+            faults = planted_faults(q, k, v, kw, b, ATTN_RTOL)
+            layers.append({"beyond": excess(a, b, ATTN_RTOL) / rms,
+                           **{n: e / rms for n, e in faults.items()}})
+    del captured, a, b
+    # The worst layer of each reading: the largest for the kernel and
+    # the control, the smallest for each planted fault.
+    names = dict.fromkeys(n for r in layers for n in r)
+    summary = {n: (max if n in ("beyond", "dense") else min)(
+        (r[n], i) for i, r in enumerate(layers) if n in r) for n in names}
+    log("serve", f"{cfg.name} {what}: each layer's attention, kernel vs "
+        f"plain on its captured inputs, beyond rtol {ATTN_RTOL} in RMS "
+        f"|v| (limit {ATTN_ATOL_RMS_V}), worst layer: "
+        + ", ".join(f"{'kernel' if n == 'beyond' else n} {e:.3e} (layer "
+                    f"{i})" for n, (e, i) in summary.items()))
+    for i, r in enumerate(layers):
+        assert r["beyond"] <= ATTN_ATOL_RMS_V, (
+            f"{cfg.name} {what} layer {i} attention: kernel vs plain "
+            f"{r['beyond']:.3e} RMS |v| beyond rtol on its captured "
+            "inputs")
+        hold_planted({n: e for n, e in r.items() if n != "beyond"},
+                     ATTN_ATOL_RMS_V, f"{cfg.name} {what} layer {i}")
+    scale = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    spread = (alt - want).abs().max().item()
+    agree = (got[:, -1].argmax(-1) == want[:, -1].argmax(-1)).float().mean()
+    limit = max(LOGIT_REL_TOL * scale, LOGIT_SPREAD_FACTOR * spread)
+    msg = (f"{cfg.name} {what} prefill logits kernel vs plain: max_abs_err "
+           f"{err:.4f} of max |logit| {scale:.2f} ({err / scale:.3e}); "
+           f"plain at half chunks vs plain {spread:.4f} "
+           f"({spread / scale:.3e}); kernel / spread "
+           f"{err / spread if spread else float('nan'):.3f}; "
+           f"last-position argmax agreement "
+           f"{agree.item():.2f}")
+    if not moes:
+        log("serve", msg + f"; limit {limit:.4f}")
+        assert err <= limit, msg
+        return got
+    log("serve", msg + " (reported, not held: routing flips)")
+    assert len(routes["kernel"]) == len(routes["plain"]) == cfg.n_layers
+    dropped = 0
+    for i, ((ks, kk), (ps, _)) in enumerate(zip(routes["kernel"],
+                                                routes["plain"])):
+        T, K = ks.shape
+        differ = ~(ks[:, :, None] == ps[:, None, :]).any(-1)
+        row = {"layer": i, "routes": T * K,
+               "routes_differ_share": differ.float().mean().item(),
+               "dropped_routes": int((~kk).sum()),
+               "tokens_dropped_entirely": int((~kk).all(-1).sum())}
+        log("serve", f"{cfg.name} MoE routing, kernel vs plain attention "
+            + json.dumps(row))
+        dropped += row["dropped_routes"]
+    assert dropped > 0, "the capacity path dropped no route"
+    return got
+
+
+def phase_serve_zoo(arch):
+    """One of the model zoo's text decoders at its published width
+    through ServeEngine: launch counts, the kernel against the plain
+    attention on the first wave, a profiled prefill and decode step."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import forward, init_caches, init_model
+    from repro_torch.serve import ServeEngine
+
+    layers, groups = ZOO_SERVED[arch]
+    full = get_config(arch)
+    cfg = full if layers is None else full.replace(n_layers=layers)
+    t0 = time.perf_counter()
+    model = init_model(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    rng = np.random.default_rng(0)
+    lengths = np.concatenate([rng.integers(lo, hi, n) for lo, hi, n in groups])
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in lengths]
+    capacity = max(2048, int(lengths.max()) + ZOO_NEW_TOKENS)
+    engine = ServeEngine(cfg, model, batch_size=4, capacity=capacity,
+                         device="cuda")
+    n_waves = math.ceil(len(prompts) / engine.B)
+    cut = ("" if layers is None else
+           f" (depth cut: {layers} of {full.n_layers} layers, because its "
+           f"{full.n_layers}-layer weights do not fit one 80 GB card in "
+           "bf16; widths as published)")
+    log("serve", f"{cfg.name}: {n_params} parameters ({cfg.dtype}, drawn "
+        f"in {init_s:.1f}s){cut}, {len(prompts)} requests, prompt lengths "
+        f"{lengths.tolist()}, {n_waves} waves of up to {engine.B}, "
+        f"capacity {capacity}")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    outs = engine.generate(prompts, max_new_tokens=ZOO_NEW_TOKENS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    launches = counts["flash_attention"]
+    peak = torch.cuda.max_memory_allocated()
+
+    assert launches == cfg.n_layers * n_waves, (
+        f"flash_attention launched {launches} times, expected "
+        f"{cfg.n_layers} layers x {n_waves} prefill waves")
+    assert counts["wkv6"] == counts["ssm_scan"] == counts["gemm"] == 0, counts
+    assert len(outs) == len(prompts)
+    assert all(len(o) == ZOO_NEW_TOKENS for o in outs)
+    assert all(0 <= t < cfg.vocab_size for o in outs for t in o)
+
+    toks = torch.from_numpy(engine.pad_wave(prompts[:engine.B])).cuda()
+    check_zoo_prefill(model, cfg, toks, capacity, "first wave")
+    if len(groups) > 1:     # gemma2's long wave, past the window
+        long = torch.from_numpy(engine.pad_wave(
+            prompts[-groups[-1][2]:])).cuda()
+        check_zoo_prefill(model, cfg, long, capacity,
+                          f"long wave (last {ZOO_LONG_TAIL} positions)",
+                          tail=ZOO_LONG_TAIL)
+
+    # Where a warm prefill of the first wave and one decode step after it
+    # spend their time.
+    with torch.inference_mode():
+        caches = init_caches(cfg, engine.B, capacity)
+        prefill = device_breakdown(lambda: forward(
+            model, {"tokens": toks}, mode="prefill", caches=caches))
+        step = torch.tensor([o[0] for o in outs[:engine.B]],
+                            device="cuda")[:, None]
+        decode = device_breakdown(lambda: forward(
+            model, {"tokens": step}, mode="decode", caches=caches,
+            pos=toks.shape[1]))
+    log("serve", "profile prefill " + json.dumps(prefill))
+    log("serve", "profile decode step " + json.dumps(decode))
+
+    pre = engine.timings["prefill_s"]
+    dec = engine.timings["decode_s"]
+    gen_tokens = sum(len(o) for o in outs)
+    row = {"arch": cfg.name, "layers": cfg.n_layers,
+           "parameters": n_params, "requests": len(prompts),
+           "prompt_tokens": int(lengths.sum()),
+           "new_tokens": ZOO_NEW_TOKENS, "waves": n_waves,
+           "flash_launches": launches,
+           "prefill_ms": [1e3 * s for s in pre],
+           "decode_ms_per_token": 1e3 * statistics.median(dec),
+           "wall_s": wall, "tokens_per_s": gen_tokens / wall,
+           "prompt_tokens_per_s": int(lengths.sum()) / sum(pre),
+           "max_memory_allocated_bytes": peak,
+           "prefill_busy_share": prefill["busy_share"],
+           "decode_busy_share": decode["busy_share"],
+           "first_tokens": outs[0][:8]}
+    log("serve", json.dumps(row))
+    del engine, model, caches
+    torch.cuda.empty_cache()
     return counts
 
 
@@ -2931,7 +3392,9 @@ def main():
             "ssm_scan": phase_ssd(), "gemm": phase_gemm()}
     launches = collections.Counter()
     for phase in (phase_calibrate_plan, phase_serve, phase_serve_rwkv6,
-                  phase_serve_zamba2, phase_optimize):
+                  phase_serve_zamba2, *(
+                      functools.partial(phase_serve_zoo, arch)
+                      for arch in ZOO_SERVED), phase_optimize):
         launches.update(phase())
     counts, rows["sgs_batch"] = phase_sweeps()
     launches.update(counts)
@@ -2940,7 +3403,7 @@ def main():
     counts, _ = phase_multitenant()
     launches.update(counts)
     launches.update(phase_cosearch())
-    log("cosearch", f"launches over the calibration pass, the three "
+    log("cosearch", f"launches over the calibration pass, the seven "
         f"serve paths, the pipelining sweep, the flow legs, phase 9 and "
         f"phase 10: {dict(launches)}")
     kernels = [{

@@ -20,9 +20,11 @@ ARCHS = (
     "hubert-xlarge",
 )
 
-PORTED = ("smollm-360m", "rwkv6-3b", "zamba2-2.7b")
+PORTED = ("smollm-360m", "rwkv6-3b", "zamba2-2.7b", "gemma2-2b",
+          "internlm2-20b", "minicpm3-4b", "mixtral-8x22b")
 
-_ZOO = "the model-zoo slice after the paper engines"
+_ZOO = ("slice 13 of the port (deepseek-v2: MLA with MoE; pixtral-12b: "
+        "the vision frontend; hubert-xlarge: the audio encoder)")
 
 
 def get_config(name: str, reduced: bool = False):

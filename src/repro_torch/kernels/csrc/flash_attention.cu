@@ -6,7 +6,11 @@
 // accumulation and an online softmax (running max, running denominator),
 // GQA (query head h reads KV head h / (H / KV)), causal and sliding-window
 // masks (kpos > qpos - window), tanh soft-capping, a custom scale, and a
-// value width Dv that may differ from the key width Dk (both <= 256).
+// value width Dv that may differ from the key width Dk. It takes Dk, Dv
+// <= 256, and MLA's absorbed latent head: Dk and Dv that round up to 288
+// and 256 (minicpm3-4b's kv_lora 256 + rope 32 keys over kv_lora 256
+// values, one KV head); kMaxHeadDim and FLASH_WIDE_PAIRS are the one list
+// of both.
 //
 // Layout: q (B, Sq, H, Dk), k (B, Skv, KV, Dk), v (B, Skv, KV, Dv), read
 // through their strides with the last dim contiguous; o (B, Sq, H, Dv).
@@ -39,12 +43,16 @@
 //
 // bf16 (`flash_bf16_kernel`): FlashAttention-2's design on the tensor
 // cores through mma.sync m16n8k16 (bf16 in, f32 sums; mma_sm90.cuh). A
-// block of 4 warps owns 64 query rows, 16 a warp. Dk and Dv are both
-// padded with zeros to D, the next multiple of 16 of the larger, in
-// shared memory; the kernel is a template over D. The Q tile is staged
-// once and goes into registers as A fragments through ldmatrix (at
-// D > 192 it stays in shared memory, for the registers). K and V tiles of
-// 64 keys (32 at D > 160, for the registers) stream through a 2-stage
+// block of 4 warps owns 64 query rows, 16 a warp. The kernel is a
+// template over DK and DV, the key and value widths padded with zeros to
+// a multiple of 16 in shared memory: Dk <= 256 and Dv <= 256 both take
+// D = DK = DV, the next multiple of 16 of the larger; MLA's pair takes
+// DK 288 and DV 256, so the output accumulator stays at DV's 128
+// registers a lane and only the Q K^T loop runs over DK. The Q tile is
+// staged once and goes into registers as A fragments through ldmatrix
+// (at DK > 192 it stays in shared memory, for the registers). K and V
+// tiles of 64 keys (32 when DK or DV > 160, for the registers) stream
+// through a 2-stage
 // ring filled by 16-byte cp.async, the next tile's copies in flight
 // during the current one's products. Rows are padded by 8 bf16 (an odd
 // number of 16-byte units), so ldmatrix hits no bank conflict. Each KV
@@ -67,7 +75,9 @@
 // ~21 MB of q/k/v/o, ~380 FLOP per byte, above the card's ~295 FLOP/byte
 // ridge: bound by operations (989 TFLOP/s through wgmma, which mma.sync
 // does not reach). At zamba2-2.7b's (B=4, S=1024, H=KV=32, D=160) the
-// bytes bound it.
+// bytes bound it. At minicpm3-4b's MLA shape (B=4, S=1024, H=40, KV=1,
+// Dk 288, Dv 256) ~91 GFLOP against ~182 MB, ~500 FLOP per byte: bound
+// by operations; its one KV head is read by all 40 heads from L2.
 //
 // C interface for ctypes: launches on the given stream, does not
 // synchronise, allocates nothing, returns cudaGetLastError().
@@ -299,28 +309,31 @@ __device__ __forceinline__ float exp2_approx(float x) {
   return y;
 }
 
-// D: Dk and Dv padded to a multiple of 16.
-template <int D>
+// DK, DV: Dk and Dv padded to a multiple of 16.
+template <int DK, int DV>
 struct FlashTiles {
-  static constexpr int kBKV = D <= 160 ? 64 : 32;   // keys per KV tile
-  static constexpr bool kQInRegs = D <= 192;
-  static constexpr int kLd = D + 8;                 // smem row stride
-  static constexpr int kQ = kBQ16 * kLd;            // bf16 in the Q tile
-  static constexpr int kKV = kBKV * kLd;            // ... in a K or V tile
-  static constexpr size_t kSmem = sizeof(bf16) * (kQ + 4 * kKV);
+  static constexpr int kD = DK > DV ? DK : DV;
+  static constexpr int kBKV = kD <= 160 ? 64 : 32;  // keys per KV tile
+  static constexpr bool kQInRegs = DK <= 192;
+  static constexpr int kLdK = DK + 8;               // smem row stride, Q, K
+  static constexpr int kLdV = DV + 8;               // ... V
+  static constexpr int kQ = kBQ16 * kLdK;           // bf16 in the Q tile
+  static constexpr int kK = kBKV * kLdK;            // ... in a K tile
+  static constexpr int kV = kBKV * kLdV;            // ... in a V tile
+  static constexpr size_t kSmem = sizeof(bf16) * (kQ + 2 * kK + 2 * kV);
 };
 
 // Stages rows r0 .. r0 + R - 1 (those below `rows`) of a (rows, cols)
-// bf16 matrix with row stride `ld` into an R x D shared tile of row
-// stride D + 8; columns past `cols` and rows past `rows` become zeros.
+// bf16 matrix with row stride `ld` into an R x W shared tile of row
+// stride W + 8; columns past `cols` and rows past `rows` become zeros.
 // With `vec` each 16-byte chunk is one cp.async (zero-filled when out of
 // range; `cols` is then a multiple of 8, so no chunk is partial);
 // otherwise element by element through registers.
-template <int R, int D>
+template <int R, int W>
 __device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src,
                                            long long ld, int rows, int r0,
                                            int cols, bool vec, int tid) {
-  constexpr int kChunks = D / 8, kLd = D + 8;
+  constexpr int kChunks = W / 8, kLd = W + 8;
   for (int i = tid; i < R * kChunks; i += kThreads) {
     const int r = i / kChunks, c = (i % kChunks) * 8, gr = r0 + r;
     bf16* d = dst + r * kLd + c;
@@ -338,18 +351,19 @@ __device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src,
   }
 }
 
-template <int D>
+template <int DK, int DV>
 __global__ void __launch_bounds__(kThreads)
 flash_bf16_kernel(const Params p) {
-  using Tiles = FlashTiles<D>;
-  constexpr int kBKV = Tiles::kBKV, kLd = Tiles::kLd;
-  constexpr int KT = D / 16;      // k16 steps of Q K^T over the head dim
+  using Tiles = FlashTiles<DK, DV>;
+  constexpr int kBKV = Tiles::kBKV;
+  constexpr int kLdK = Tiles::kLdK, kLdV = Tiles::kLdV;
+  constexpr int KT = DK / 16;     // k16 steps of Q K^T over the key width
   constexpr int NS = kBKV / 8;    // n-tiles of S (8 keys each)
-  constexpr int NO = D / 8;       // n-tiles of O (8 value dims each)
+  constexpr int NO = DV / 8;      // n-tiles of O (8 value dims each)
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* qs = reinterpret_cast<bf16*>(smem_raw);
   bf16* ks = qs + Tiles::kQ;          // 2 stages
-  bf16* vs = ks + 2 * Tiles::kKV;     // 2 stages
+  bf16* vs = ks + 2 * Tiles::kK;      // 2 stages
 
   // Blocks run in groups of p.group (b, h) pairs, whose K and V fit in
   // L2 together; inside a group, query tiles heaviest (latest, under the
@@ -380,13 +394,13 @@ flash_bf16_kernel(const Params p) {
 
   auto load_kv = [&](int t) {
     const int k0 = kv_lo + t * kBKV, s = t % 2;
-    stage_rows<kBKV, D>(ks + s * Tiles::kKV, kg, p.k_ss, p.Skv, k0, p.Dk,
-                        p.vec_k, tid);
-    stage_rows<kBKV, D>(vs + s * Tiles::kKV, vg, p.v_ss, p.Skv, k0, p.Dv,
-                        p.vec_v, tid);
+    stage_rows<kBKV, DK>(ks + s * Tiles::kK, kg, p.k_ss, p.Skv, k0, p.Dk,
+                         p.vec_k, tid);
+    stage_rows<kBKV, DV>(vs + s * Tiles::kV, vg, p.v_ss, p.Skv, k0, p.Dv,
+                         p.vec_v, tid);
   };
 
-  stage_rows<kBQ16, D>(qs, qg, p.q_ss, p.Sq, q0, p.Dk, p.vec_q, tid);
+  stage_rows<kBQ16, DK>(qs, qg, p.q_ss, p.Sq, q0, p.Dk, p.vec_q, tid);
   mma::cp_async_commit();
   if (n_kv > 0) load_kv(0);
   mma::cp_async_commit();
@@ -399,7 +413,7 @@ flash_bf16_kernel(const Params p) {
   // 8 ((lane / 8) % 2).
   const int lrow = lane % 16, lcol = 8 * (lane / 16);
   const int krow = lane % 8 + 8 * (lane / 16), kcol = 8 * ((lane / 8) % 2);
-  const bf16* q_lane = qs + (16 * warp + lrow) * kLd + lcol;
+  const bf16* q_lane = qs + (16 * warp + lrow) * kLdK + lcol;
 
   uint32_t qf[Tiles::kQInRegs ? KT : 1][4];
   if constexpr (Tiles::kQInRegs) {
@@ -428,8 +442,8 @@ flash_bf16_kernel(const Params p) {
     mma::cp_async_commit();
     mma::cp_async_wait<1>();            // tile t has landed
     __syncthreads();
-    const bf16* kst = ks + (t % 2) * Tiles::kKV;
-    const bf16* vst = vs + (t % 2) * Tiles::kKV;
+    const bf16* kst = ks + (t % 2) * Tiles::kK;
+    const bf16* vst = vs + (t % 2) * Tiles::kV;
 
     // (1) S = Q K^T.
     float s[NS][4];
@@ -450,7 +464,7 @@ flash_bf16_kernel(const Params p) {
 #pragma unroll
       for (int j = 0; j < NS; j += 2)
         mma::ldmatrix_x4(r[j / 2], mma::smem_addr(
-            kst + (8 * j + krow) * kLd + 16 * kk + kcol));
+            kst + (8 * j + krow) * kLdK + 16 * kk + kcol));
 #pragma unroll
       for (int j = 0; j < NS; j += 2) {
         mma::mma_bf16_16816(s[j], qa, r[j / 2][0], r[j / 2][1]);
@@ -531,7 +545,7 @@ flash_bf16_kernel(const Params p) {
       for (int j = 0; j < NO; j += 2) {
         uint32_t r[4];
         mma::ldmatrix_x4_trans(r, mma::smem_addr(
-            vst + (16 * kk + lrow) * kLd + 8 * j + lcol));
+            vst + (16 * kk + lrow) * kLdV + 8 * j + lcol));
         mma::mma_bf16_16816(o[j], pa, r[0], r[1]);
         mma::mma_bf16_16816(o[j + 1], pa, r[2], r[3]);
       }
@@ -564,10 +578,10 @@ flash_bf16_kernel(const Params p) {
   }
 }
 
-template <int D>
+template <int DK, int DV = DK>
 cudaError_t launch_bf16(const Params& p, int B, cudaStream_t stream) {
-  constexpr size_t smem = FlashTiles<D>::kSmem;
-  auto* fn = flash_bf16_kernel<D>;
+  constexpr size_t smem = FlashTiles<DK, DV>::kSmem;
+  auto* fn = flash_bf16_kernel<DK, DV>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         fn, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
@@ -578,6 +592,30 @@ cudaError_t launch_bf16(const Params& p, int B, cudaStream_t stream) {
   if (blocks > 0x7fffffff) return cudaErrorInvalidConfiguration;
   fn<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+// The head dims both kernels take, the one list of them (the wrapper,
+// kernel.py, reads these two lines): Dk, Dv <= kMaxHeadDim (the bf16
+// kernel's <D, D> instances, D the larger rounded up to 16), and the
+// (DK, DV) pairs, rounded up to 16, of FLASH_WIDE_PAIRS, each its own
+// <DK, DV> instance: MLA's latent head (minicpm3-4b, 256 + 32 rope keys
+// over 256 values).
+constexpr int kMaxHeadDim = 256;
+#define FLASH_WIDE_PAIRS(X) X(288, 256)
+
+int up16(int d) { return (d + 15) / 16 * 16; }
+
+bool wide_pair(int Dk, int Dv) {
+#define FLASH_IS_PAIR(DK, DV) \
+  if (up16(Dk) == DK && up16(Dv) == DV) return true;
+  FLASH_WIDE_PAIRS(FLASH_IS_PAIR)
+#undef FLASH_IS_PAIR
+  return false;
+}
+
+bool supported_dims(int Dk, int Dv) {
+  return Dk > 0 && Dv > 0 &&
+         ((Dk <= kMaxHeadDim && Dv <= kMaxHeadDim) || wide_pair(Dk, Dv));
 }
 
 bool aligned(const void* ptr, int bytes) {
@@ -608,6 +646,11 @@ cudaError_t dispatch_bf16(Params p, int B, cudaStream_t stream) {
   p.vec_v = rows16(p.v, p.v_sb, p.v_ss, p.v_sh, p.Dv);
   p.vec_o = aligned(p.o, 4) && p.o_sb % 2 == 0 && p.o_ss % 2 == 0 &&
             p.o_sh % 2 == 0;
+#define FLASH_LAUNCH_PAIR(DK, DV) \
+  if (up16(p.Dk) == DK && up16(p.Dv) == DV) \
+    return launch_bf16<DK, DV>(p, B, stream);
+  FLASH_WIDE_PAIRS(FLASH_LAUNCH_PAIR)
+#undef FLASH_LAUNCH_PAIR
   switch (((p.Dk > p.Dv ? p.Dk : p.Dv) + 15) / 16) {
     case 1: return launch_bf16<16>(p, B, stream);
     case 2: return launch_bf16<32>(p, B, stream);
@@ -641,7 +684,7 @@ extern "C" int flash_attention_fwd(
     long long o_sb, long long o_ss, long long o_sh,
     int causal, int window, float softcap, float scale, void* stream) {
   if (B <= 0 || Sq <= 0 || Skv <= 0 || H <= 0 || KV <= 0 || H % KV != 0 ||
-      Dk <= 0 || Dk > 256 || Dv <= 0 || Dv > 256)
+      !supported_dims(Dk, Dv))
     return cudaErrorInvalidValue;
   const Params p{q, k, v, o, Sq, Skv, H, KV, Dk, Dv,
                  q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,

@@ -2,22 +2,46 @@
 (``kernels/csrc/flash_attention.cu``), the port of the Pallas TPU kernel
 ``flash_attention`` in the JAX package.
 
-The wrapper checks what the kernel takes and raises on anything else,
-allocates the output, and launches on PyTorch's current stream without
-synchronising. ``flash_attention.launches`` counts the launches.
+The kernel is built for head dims Dk, Dv ≤ 256 and for MLA's absorbed
+latent head (Dk, Dv rounding up to 288, 256). The wrapper checks what
+the kernel takes and raises on anything else, allocates the output, and
+launches on PyTorch's current stream without synchronising.
+``flash_attention.launches`` counts the launches.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import math
+import re
 
 import torch
 
 from .. import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_HEAD_DIM = 256
+
+
+@functools.cache
+def built_dims() -> tuple[int, tuple[tuple[int, int], ...]]:
+    """The CUDA source's one list of the head dims it is built for:
+    ``kMaxHeadDim`` (Dk, Dv up to it) and the (Dk, Dv) pairs, rounded up
+    to 16, of ``FLASH_WIDE_PAIRS``."""
+    src = (_build.CSRC / "flash_attention.cu").read_text()
+    max_d = re.search(r"constexpr int kMaxHeadDim = (\d+);", src)
+    pairs = re.search(r"#define FLASH_WIDE_PAIRS\(X\)(.*)", src)
+    return int(max_d[1]), tuple(
+        (int(a), int(b))
+        for a, b in re.findall(r"X\((\d+),\s*(\d+)\)", pairs[1]))
+
+
+def supported_dims(dk: int, dv: int) -> bool:
+    """Whether the kernel is built for head dims (dk, dv), in either
+    dtype."""
+    max_d, pairs = built_dims()
+    return dk > 0 and dv > 0 and (
+        (dk <= max_d and dv <= max_d)
+        or (-(-dk // 16) * 16, -(-dv // 16) * 16) in pairs)
 
 
 @functools.cache
@@ -57,9 +81,12 @@ def _check(q, k, v, window, softcap):
     if min(B, Sq, Skv, H, KV) <= 0 or H % KV:
         raise ValueError(f"flash_attention: need nonempty sizes and H % KV "
                          f"== 0, got H={H} KV={KV} Sq={Sq} Skv={Skv}")
-    if not (0 < Dk <= MAX_HEAD_DIM and 0 < v.shape[-1] <= MAX_HEAD_DIM):
-        raise ValueError(f"flash_attention: head dims must be in 1.."
-                         f"{MAX_HEAD_DIM}, got Dk={Dk} Dv={v.shape[-1]}")
+    if not supported_dims(Dk, v.shape[-1]):
+        max_d, pairs = built_dims()
+        raise ValueError(
+            f"flash_attention: no kernel for head dims Dk={Dk} "
+            f"Dv={v.shape[-1]}: it is built for 1..{max_d} each, and for "
+            f"(Dk, Dv) rounded up to 16 in {list(pairs)}")
     if window is not None and window < 1:
         raise ValueError(f"flash_attention: window must be >= 1, got "
                          f"{window}")

@@ -1,11 +1,18 @@
 """Serving entry point: batched generation with the port's ServeEngine.
 
-On the card (the default), for any ported arch:
+On the card (the default), for any ported arch (``--arch`` takes
+``configs.PORTED``):
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-20b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch minicpm3-4b
+mixtral-8x22b's 141B parameters (~280 GB in bf16) need more than one
+80 GB card, which the serve engine does not shard yet; one card serves
+it at the reduced size (`--reduced`).
 On the CPU, with the kernels' plain versions, at the reduced size:
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b \
         --reduced --device cpu
 """
 from __future__ import annotations
@@ -15,7 +22,7 @@ import time
 
 import numpy as np
 
-from ..configs import get_config
+from ..configs import PORTED, get_config
 from ..device import resolve_device
 from ..models import init_model
 from ..serve import ServeEngine
@@ -23,7 +30,8 @@ from ..serve import ServeEngine
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="smollm-360m")
+    ap.add_argument("--arch", default="smollm-360m",
+                    help=f"one of {', '.join(PORTED)}")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--batch", type=int, default=4)

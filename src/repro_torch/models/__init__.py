@@ -1,5 +1,5 @@
-"""The port's model zoo (dense GQA, RWKV-6 ssm and zamba2 hybrid families
-so far).
+"""The port's model zoo: the dense family (GQA, MLA, gemma2's local/global
+pairs), the moe family, the RWKV-6 ssm and the zamba2 hybrid families.
 
 >>> cfg = get_config("smollm-360m", reduced=True)
 >>> model = init_model(cfg, seed=0, device="cpu")

@@ -5,8 +5,12 @@ so both frameworks can run the very same weights.
 every leaf already converted to a numpy array (the port imports no JAX):
 ``{"embed": (Vp, D), "final_norm": (D,), ["lm_head": (D, Vp)],
 "blocks": {...}}`` with the blocks stacked on a leading layer axis —
-for the hybrid family on two, (groups, period), and beside them the
-unstacked ``shared_attn`` tree of the one shared attention block.
+for gemma2's pairs as two trees ``{"local", "global"}`` of L/2 layers
+each (interleaved back into layer order here), for the hybrid family on
+two axes, (groups, period), and beside them the unstacked
+``shared_attn`` tree of the one shared attention block. bf16 leaves (a
+``param_dtype`` of bfloat16, as mixtral's) arrive as numpy's bfloat16
+extension type and are read through f32.
 """
 from __future__ import annotations
 
@@ -16,19 +20,34 @@ import torch
 from .config import ModelConfig
 
 # path in the JAX block tree -> port name, per family; stacked shape beside
-# each
+# each. The dense and moe families take their attention and MLP leaves
+# from the config (``_block_leaves``).
+_ATTN = {
+    ("attn", "wq"): "attn.wq",            # (L, D, H, Dh)
+    ("attn", "wk"): "attn.wk",            # (L, D, KV, Dh)
+    ("attn", "wv"): "attn.wv",            # (L, D, KV, Dh)
+    ("attn", "wo"): "attn.wo",            # (L, H, Dh, D)
+}
+# MLA's leaves, beside each its stacked shape: q through the low-rank
+# pair when q_lora_rank is set, else through one full-rank wq.
+_MLA_Q = {True: ("wq_a",                  # (L, D, q_lora)
+                 "q_a_norm",              # (L, q_lora)
+                 "wq_b"),                 # (L, q_lora, H, nope + rope)
+          False: ("wq",)}                 # (L, D, H, nope + rope)
+_MLA_KV = ("wkv_a",                       # (L, D, kv_lora + rope)
+           "kv_a_norm",                   # (L, kv_lora)
+           "wk_b",                        # (L, kv_lora, H, nope)
+           "wv_b",                        # (L, kv_lora, H, v_head)
+           "wo")                          # (L, H, v_head, D)
+_MLP = {("mlp", n): f"mlp.{n}" for n in (
+    "w_gate", "w_up",                     # (L, D, F)
+    "w_down")}                            # (L, F, D)
+_MOE = {("moe", n): f"moe.{n}" for n in (
+    "router",                             # (L, D, E)
+    "w_gate", "w_up",                     # (L, E, D, F)
+    "w_down")}                            # (L, E, F, D)
+_POST_NORMS = {("ln1b",): "ln1b", ("ln2b",): "ln2b"}   # gemma2, (L, D)
 _BLOCK_LEAVES = {
-    "dense": {
-        ("ln1",): "ln1",
-        ("ln2",): "ln2",
-        ("attn", "wq"): "attn.wq",        # (L, D, H, Dh)
-        ("attn", "wk"): "attn.wk",        # (L, D, KV, Dh)
-        ("attn", "wv"): "attn.wv",        # (L, D, KV, Dh)
-        ("attn", "wo"): "attn.wo",        # (L, H, Dh, D)
-        ("mlp", "w_gate"): "mlp.w_gate",  # (L, D, F)
-        ("mlp", "w_up"): "mlp.w_up",      # (L, D, F)
-        ("mlp", "w_down"): "mlp.w_down",  # (L, F, D)
-    },
     "ssm": {
         ("ln1",): "ln1",
         ("ln2",): "ln2",
@@ -69,10 +88,26 @@ _SHARED_LEAVES = {
                                                "w_down")},
     ("down",): "shared.down",             # (2D, D)
 }
+
+
+def _block_leaves(cfg: ModelConfig) -> dict:
+    if cfg.family not in ("dense", "moe"):
+        return _BLOCK_LEAVES[cfg.family]
+    if cfg.attn_type == "mla":
+        attn = {("attn", n): f"attn.{n}"
+                for n in _MLA_Q[bool(cfg.q_lora_rank)] + _MLA_KV}
+    else:
+        attn = _ATTN
+    return {("ln1",): "ln1", ("ln2",): "ln2", **attn,
+            **(_MOE if cfg.family == "moe" else _MLP),
+            **(_POST_NORMS if cfg.local_global_period else {})}
+
+
 # Kept in f32: the norm scales, and the RWKV-6 and Mamba-2 weights the
 # JAX layers compute with in f32 (decay LoRA, bonus u inside the WKV,
 # ln_x scale; dt_bias, A_log, D and the gated norm's scale).
-_F32 = {"ln", "ln1", "ln2", "final_norm", "time.w0", "time.decay_A",
+_F32 = {"ln", "ln1", "ln2", "ln1b", "ln2b", "attn.q_a_norm",
+        "attn.kv_a_norm", "final_norm", "time.w0", "time.decay_A",
         "time.decay_B", "time.u", "time.ln_x", "mamba.dt_bias",
         "mamba.A_log", "mamba.D", "mamba.norm", "shared.ln1", "shared.ln2"}
 
@@ -100,8 +135,13 @@ def from_jax_params(cfg: ModelConfig, params: dict) -> dict:
     if not cfg.tie_embeddings:
         state["lm_head"] = tensor("lm_head", params["lm_head"])
     hybrid = cfg.family == "hybrid"
-    for path, name in _BLOCK_LEAVES[cfg.family].items():
-        leaf = np.asarray(_leaf(params["blocks"], path))
+    for path, name in _block_leaves(cfg).items():
+        if cfg.local_global_period:   # (L/2, ...) local and global stacks
+            pair = [np.asarray(_leaf(params["blocks"][k], path))
+                    for k in ("local", "global")]
+            leaf = np.stack(pair, axis=1).reshape(-1, *pair[0].shape[1:])
+        else:
+            leaf = np.asarray(_leaf(params["blocks"], path))
         if hybrid:   # (groups, period, ...) -> (layers, ...)
             if leaf.shape[1] != cfg.hybrid_attn_period:
                 raise ValueError(f"blocks/{'/'.join(path)} has groups of "

@@ -1,8 +1,9 @@
-"""Model assembly: the ``dense`` family (attention + gated MLP blocks),
-the ``ssm`` family (RWKV-6 time-mix + channel-mix blocks) and the
-``hybrid`` family (zamba2: Mamba-2 blocks, and one shared-weight
-attention block on concat(hidden, embed₀) after every
-``hybrid_attn_period`` of them).
+"""Model assembly: the ``dense`` family (attention + gated MLP blocks;
+gemma2's local/global layer pairs with post-norms; MLA attention for
+minicpm3), the ``moe`` family (attention + top-k MoE blocks), the
+``ssm`` family (RWKV-6 time-mix + channel-mix blocks) and the ``hybrid``
+family (zamba2: Mamba-2 blocks, and one shared-weight attention block on
+concat(hidden, embed₀) after every ``hybrid_attn_period`` of them).
 
 ``init_model(cfg, seed, device) → Transformer`` (an ``nn.Module`` with a
 ``ModuleList`` of blocks) and ``forward(model, batch, mode, caches, pos)
@@ -10,8 +11,9 @@ attention block on concat(hidden, embed₀) after every
 compute dtype ``cfg.dtype``: the JAX package keeps them in
 ``param_dtype`` and casts them at every use, which gives the same values.
 Norm scales, and the RWKV and Mamba-2 weights the JAX layers compute
-with in f32, stay f32. Other families, and options no ported arch uses
-yet, raise ``NotImplementedError``.
+with in f32, stay f32. The options no ported arch uses yet (shared
+experts, leading dense layers, qk-norm, encoders, frontends) raise
+``NotImplementedError`` naming slice 13.
 """
 from __future__ import annotations
 
@@ -23,11 +25,13 @@ from .config import ModelConfig
 from .layers.attention import Attention
 from .layers.common import dense_init, rms_norm, softcap, weight
 from .layers.mamba2 import Mamba2, init_mamba_state
-from .layers.mlp import MLP
+from .layers.mla import MLA
+from .layers.mlp import MLP, MoE
 from .layers.rwkv6 import ChannelMix, TimeMix, init_rwkv_state
 
-# family -> the attention type the port serves it with
-_FAMILIES = {"dense": "gqa", "ssm": "none", "hybrid": "gqa"}
+# family -> the attention types the port serves it with
+_FAMILIES = {"dense": ("gqa", "mla"), "moe": ("gqa", "mla"),
+             "ssm": ("none",), "hybrid": ("gqa",)}
 _RWKV_STATE = ("shift_t", "shift_c", "wkv")
 _MAMBA_STATE = ("conv", "ssm")
 
@@ -35,24 +39,35 @@ _MAMBA_STATE = ("conv", "ssm")
 def _check_supported(cfg: ModelConfig):
     unsupported = {
         "family": cfg.family not in _FAMILIES,
-        "local_global_period": bool(cfg.local_global_period),
-        "attn_type": cfg.attn_type != _FAMILIES.get(cfg.family),
+        "local_global_period": cfg.local_global_period not in (0, 2) or (
+            cfg.local_global_period and cfg.n_layers % 2),
+        "attn_type": cfg.attn_type not in _FAMILIES.get(cfg.family, ()),
+        "n_shared_experts": bool(cfg.n_shared_experts),
+        "first_dense_layers": bool(cfg.first_dense_layers),
         "qk_norm": cfg.qk_norm,
         "is_encoder": cfg.is_encoder,
         "frontend": cfg.frontend is not None,
-        "emb_scale_by_sqrt_dim": cfg.emb_scale_by_sqrt_dim,
     }
     bad = [k for k, v in unsupported.items() if v]
     if bad:
         raise NotImplementedError(
-            f"{cfg.name}: the port serves the dense GQA, the RWKV-6 ssm and "
-            "the zamba2 hybrid families only so far; "
-            f"unsupported: {', '.join(bad)} (ROADMAP.md, queue A)")
+            f"{cfg.name}: the port serves the dense (GQA, MLA, gemma2's "
+            "local/global pairs), moe, RWKV-6 ssm and zamba2 hybrid "
+            f"families; unsupported: {', '.join(bad)} (slice 13, "
+            "ROADMAP.md queue A)")
     if cfg.family == "hybrid" and (
             cfg.hybrid_attn_period <= 0
             or cfg.n_layers % cfg.hybrid_attn_period):
         raise ValueError(f"{cfg.name}: {cfg.n_layers} Mamba-2 layers do not "
                          f"form groups of {cfg.hybrid_attn_period}")
+
+
+def _layer_window(cfg: ModelConfig, i: int):
+    """gemma2's pairs: even layers local (the window), odd layers global
+    (none); every other arch's layers all take ``cfg.window``."""
+    if cfg.local_global_period and i % 2:
+        return None
+    return cfg.window
 
 
 def _shared_attn_cfg(cfg: ModelConfig) -> ModelConfig:
@@ -65,22 +80,43 @@ def _f32_param(n, device):
 
 
 class Block(nn.Module):
-    def __init__(self, cfg: ModelConfig, dtype, device):
+    """ln1 → attention (GQA or MLA) [→ ln1b] → residual, ln2 → MLP or MoE
+    [→ ln2b] → residual; the post-norms ln1b/ln2b only with gemma2's
+    local/global pairs."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device, window=None):
         super().__init__()
         self.ln1 = _f32_param(cfg.d_model, device)
         self.ln2 = _f32_param(cfg.d_model, device)
-        self.attn = Attention(cfg, dtype, device)
-        self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.d_model, dtype, device)
+        self.attn = (MLA if cfg.attn_type == "mla" else Attention)(
+            cfg, dtype, device)
+        if cfg.family == "moe":
+            self.moe = MoE(cfg, dtype, device)
+        else:
+            self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.d_model, dtype, device)
+        if cfg.local_global_period:
+            self.ln1b = _f32_param(cfg.d_model, device)
+            self.ln2b = _f32_param(cfg.d_model, device)
         self.cfg = cfg
+        self.window = window
 
     def forward(self, x, *, positions, cache, pos, mode, dtype):
         cfg = self.cfg
         h = rms_norm(x, self.ln1, cfg.norm_eps, plus_one=True)
-        a, cache = self.attn(h, positions=positions, window=cfg.window,
-                             cache=cache, pos=pos, mode=mode, dtype=dtype)
+        kw = {} if cfg.attn_type == "mla" else {"window": self.window}
+        a, cache = self.attn(h, positions=positions, cache=cache, pos=pos,
+                             mode=mode, dtype=dtype, **kw)
+        if cfg.local_global_period:
+            a = rms_norm(a, self.ln1b, cfg.norm_eps, plus_one=True)
         x = x + a
         h = rms_norm(x, self.ln2, cfg.norm_eps, plus_one=True)
-        return x + self.mlp(h, cfg.act, dtype), cache
+        if cfg.family == "moe":
+            m, _ = self.moe(h, dtype)       # the aux loss is for training
+        else:
+            m = self.mlp(h, cfg.act, dtype)
+        if cfg.local_global_period:
+            m = rms_norm(m, self.ln2b, cfg.norm_eps, plus_one=True)
+        return x + m, cache
 
 
 class RWKVBlock(nn.Module):
@@ -162,10 +198,14 @@ class Transformer(nn.Module):
         self.final_norm = _f32_param(D, device)
         if not cfg.tie_embeddings:
             self.lm_head = weight(D, Vp, dtype=self.dtype, device=device)
-        block = {"ssm": RWKVBlock, "hybrid": MambaBlock}.get(cfg.family,
-                                                             Block)
-        self.blocks = nn.ModuleList(block(cfg, self.dtype, device)
-                                    for _ in range(cfg.n_layers))
+        if cfg.family in ("ssm", "hybrid"):
+            block = {"ssm": RWKVBlock, "hybrid": MambaBlock}[cfg.family]
+            blocks = (block(cfg, self.dtype, device)
+                      for _ in range(cfg.n_layers))
+        else:
+            blocks = (Block(cfg, self.dtype, device, _layer_window(cfg, i))
+                      for i in range(cfg.n_layers))
+        self.blocks = nn.ModuleList(blocks)
         if cfg.family == "hybrid":
             self.shared = SharedAttention(cfg, self.dtype, device)
 
@@ -173,6 +213,8 @@ class Transformer(nn.Module):
         """tokens (B, S) → (logits (B, S, padded_vocab), caches)."""
         cfg, dtype = self.cfg, self.dtype
         x = self.embed[tokens].to(dtype)
+        if cfg.emb_scale_by_sqrt_dim:       # √D rounded to dtype, as in JAX
+            x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dtype)
         if cfg.family == "ssm":
             x = self._rwkv_blocks(x, caches, mode)
         elif cfg.family == "hybrid":
@@ -199,8 +241,8 @@ class Transformer(nn.Module):
     def _attention_blocks(self, x, caches, mode, pos):
         positions = self._positions(x, mode, pos)
         for i, blk in enumerate(self.blocks):
-            cache = None if caches is None else {
-                "k": caches["layers"]["k"][i], "v": caches["layers"]["v"][i]}
+            cache = None if caches is None else _layer_cache(
+                self.cfg, caches["layers"], i)
             x, _ = blk(x, positions=positions, cache=cache, pos=pos,
                        mode=mode, dtype=self.dtype)
         return x
@@ -240,10 +282,19 @@ class Transformer(nn.Module):
         return x
 
 
+def _layer_cache(cfg: ModelConfig, layers: dict, i: int) -> dict:
+    """Layer i's views of the stacked caches: gemma2's pairs index their
+    local or global stack by i // 2."""
+    if cfg.local_global_period:
+        layers, i = layers["global" if i % 2 else "local"], i // 2
+    return {n: t[i] for n, t in layers.items()}
+
+
 def init_model(cfg: ModelConfig, seed: int = 0, device=None) -> Transformer:
     """Random weights from ``torch.Generator(device).manual_seed(seed)``,
-    with the JAX package's init: truncated-normal fan-in matrices, the
-    embedding scaled by √D, zero norm scales (stored as offsets from 1);
+    with the JAX package's init: truncated-normal fan-in matrices (MLA's
+    and the MoE's too), the embedding scaled by √D, zero norm scales
+    (stored as offsets from 1);
     for RWKV-6 also the mixes at 0.5, the base decay ``w0`` at -4 and
     ``ln_x`` at 1; for Mamba-2 ``dt_bias``, ``A_log`` and the conv bias at
     0 and ``D`` at 1. ``device=None`` means the card."""
@@ -270,13 +321,42 @@ def init_model(cfg: ModelConfig, seed: int = 0, device=None) -> Transformer:
             if cfg.family == "ssm":
                 _init_rwkv_block(blk, cfg, fill)
                 continue
-            for w in (blk.attn.wq, blk.attn.wk, blk.attn.wv):
-                fill(w, D)
-            fill(blk.attn.wo, cfg.n_heads * cfg.d_head)
-            fill(blk.mlp.w_gate, D)
-            fill(blk.mlp.w_up, D)
-            fill(blk.mlp.w_down, cfg.d_ff)
+            _init_block(blk, cfg, fill)
     return model
+
+
+def _init_block(blk: Block, cfg: ModelConfig, fill):
+    """An attention block with the JAX package's fan-ins (``init_attn``
+    or ``init_mla``, ``init_mlp`` or ``init_moe``)."""
+    D, a = cfg.d_model, blk.attn
+    if cfg.attn_type == "mla":
+        r_q, r_kv = cfg.q_lora_rank, cfg.kv_lora_rank
+        if r_q:
+            fill(a.wq_a, D)
+            a.q_a_norm.zero_()
+            fill(a.wq_b, r_q)
+        else:
+            fill(a.wq, D)
+        fill(a.wkv_a, D)
+        a.kv_a_norm.zero_()
+        fill(a.wk_b, r_kv)
+        fill(a.wv_b, r_kv)
+        fill(a.wo, cfg.n_heads * cfg.v_head_dim)
+    else:
+        for w in (a.wq, a.wk, a.wv):
+            fill(w, D)
+        fill(a.wo, cfg.n_heads * cfg.d_head)
+    if cfg.family == "moe":
+        m, f = blk.moe, cfg.moe_d_ff
+        fill(m.router, D)
+    else:
+        m, f = blk.mlp, cfg.d_ff
+    fill(m.w_gate, D)
+    fill(m.w_up, D)
+    fill(m.w_down, f)
+    if cfg.local_global_period:
+        blk.ln1b.zero_()
+        blk.ln2b.zero_()
 
 
 def _init_hybrid(model: Transformer, cfg: ModelConfig, fill):
@@ -321,8 +401,12 @@ def _init_rwkv_block(blk: RWKVBlock, cfg: ModelConfig, fill):
 def init_caches(cfg: ModelConfig, batch: int, capacity: int,
                 dtype=torch.bfloat16, device=None) -> dict:
     """Serving state for the whole model, stacked along the layer axis:
-    dense {"layers": {"k", "v": (L, B, C, KV, Dh)}}; ssm {"layers":
-    {"shift_t", "shift_c": (L, B, D), "wkv": (L, B, H, K, K) f32}}, a
+    dense and moe {"layers": {"k", "v": (L, B, C, KV, Dh)}}, C capped at
+    the window; gemma2's pairs {"layers": {"local": {"k", "v": (L/2, B,
+    min(C, window), KV, Dh)}, "global": {... (L/2, B, C, KV, Dh)}}}; MLA
+    {"layers": {"ckv": (L, B, C, kv_lora), "krope": (L, B, C, rope)}};
+    ssm {"layers": {"shift_t", "shift_c": (L, B, D), "wkv": (L, B, H, K,
+    K) f32}}, a
     constant size whatever ``capacity``; hybrid {"mamba": {"conv": (L, B,
     K−1, conv channels), "ssm": (L, B, H, P, N) f32}, "shared": {"k", "v":
     (groups, B, min(capacity, window), KV, 2·D / n_heads)}}. The cache
@@ -345,10 +429,23 @@ def init_caches(cfg: ModelConfig, batch: int, capacity: int,
         one = init_rwkv_state(cfg, batch, dtype, device)
         return {"layers": {n: t.new_zeros((cfg.n_layers, *t.shape))
                            for n, t in one.items()}}
-    cap = capacity if cfg.window is None else min(capacity, cfg.window)
-    shape = (cfg.n_layers, batch, cap, cfg.n_kv_heads, cfg.d_head)
-    return {"layers": {n: torch.zeros(shape, dtype=dtype, device=device)
-                       for n in ("k", "v")}}
+
+    def kv(n_layers, cap):
+        shape = (n_layers, batch, cap, cfg.n_kv_heads, cfg.d_head)
+        return {n: torch.zeros(shape, dtype=dtype, device=device)
+                for n in ("k", "v")}
+    if cfg.attn_type == "mla":
+        return {"layers": {
+            n: torch.zeros((cfg.n_layers, batch, capacity, w), dtype=dtype,
+                           device=device)
+            for n, w in (("ckv", cfg.kv_lora_rank),
+                         ("krope", cfg.qk_rope_dim))}}
+    if cfg.local_global_period:
+        half = cfg.n_layers // 2
+        return {"layers": {"local": kv(half, min(capacity, cfg.window)),
+                           "global": kv(half, capacity)}}
+    return {"layers": kv(cfg.n_layers, capacity if cfg.window is None
+                         else min(capacity, cfg.window))}
 
 
 def forward(model: Transformer, batch: dict, *, mode: str = "train",

@@ -1,8 +1,9 @@
 """Batched serving engine: prefill + decode over a fixed request batch
 with greedy or temperature sampling. Prompt lists longer than the batch
 run in waves. Runs eagerly; on the card, prefill goes through the CUDA
-kernels (flash attention for the dense family and zamba2's shared
-attention, WKV-6 for RWKV-6, the SSD scan for zamba2's Mamba-2 layers).
+kernels (flash attention for the dense and moe families, MLA's latent
+head among them, and zamba2's shared attention, WKV-6 for RWKV-6, the
+SSD scan for zamba2's Mamba-2 layers).
 The RWKV-6 and Mamba-2 states have a constant size, so ``capacity``
 matters to the attention caches only.
 """

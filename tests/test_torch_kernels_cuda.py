@@ -2,8 +2,10 @@
 kernel on strided views, its rejects, one launch per call, and the
 build (its key covers the shared headers); the GEMM at the JAX suite's
 shapes and the calibration's sizes and the SSD at the calibration's
-state dim 16; the bf16 tensor-core paths of flash (every head-dim
-tiling, GQA, ragged lengths, rows that are not 16-byte aligned), of
+state dim 16; flash at MLA's latent head (Dk 288 / Dv 256, KV 1, H 40)
+in both dtypes, and its refusal of pairs it is not built for; the bf16
+tensor-core paths of flash (every head-dim tiling, GQA, ragged lengths,
+rows that are not 16-byte aligned), of
 the GEMM (K tails and unaligned rows), and of the chunked SSD and WKV-6
 (every state and head dim, ragged lengths, initial states, strided
 views, vanishing decays, a head dim over two column tiles); the batched
@@ -219,6 +221,47 @@ def test_flash_kernel_bf16_matches_plain(cuda, case):
     assert got.dtype == torch.bfloat16 and got.shape == (B, Sq, H, dv)
     want = blockwise_attention(q, k, v, **kw)
     torch.testing.assert_close(got.float(), want.float(), **FLASH_BF16_TOL)
+
+
+# MLA's absorbed latent head (minicpm3-4b): MQA (KV 1) with H 40, keys of
+# kv_lora 256 + rope 32, values of kv_lora 256, scale 1/sqrt(nope + rope)
+# = 1/sqrt(96), causal; the value a view of the key's first 256 columns
+# as the MLA layer passes it, or a tensor of its own; a ragged length.
+MLA_CASES = {"view_s200": (200, True), "own_v_s77": (77, False)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", MLA_CASES)
+def test_flash_kernel_mla_latent_head(cuda, case, dtype):
+    S, view = MLA_CASES[case]
+    g = torch.Generator(device=cuda).manual_seed(7)
+    q = torch.randn(2, S, 40, 288, generator=g, device=cuda).to(dtype)
+    k = torch.randn(2, S, 1, 288, generator=g, device=cuda).to(dtype)
+    v = k[..., :256] if view else torch.randn(
+        2, S, 1, 256, generator=g, device=cuda).to(dtype)
+    kw = dict(causal=True, scale=96 ** -0.5)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, **kw)
+    assert flash_attention.launches == before + 1
+    assert got.shape == (2, S, 40, 256) and got.dtype == dtype
+    want = blockwise_attention(q, k, v, **kw)
+    tol = F32_TOL if dtype == torch.float32 else FLASH_BF16_TOL
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_rejects_unbuilt_head_dims(cuda):
+    """Only Dk, Dv <= 256 and the pair rounding up to (288, 256) are
+    built: any other pair raises before a launch."""
+    before = flash_attention.launches
+    for dk, dv in ((300, 256), (288, 240), (256, 288)):
+        q = torch.zeros(1, 8, 2, dk, device=cuda)
+        v = torch.zeros(1, 8, 1, dv, device=cuda)
+        with pytest.raises(ValueError, match="head dims"):
+            flash_attention(q, q[:, :, :1], v)
+    assert flash_attention.launches == before
 
 
 @pytest.mark.cuda
