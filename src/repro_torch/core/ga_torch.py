@@ -106,15 +106,26 @@ def _rows(A, idx):
     return A[g, idx]
 
 
-def _step(consts, win, cfg, opts, objective, elite, gen, carry):
+def _draws(gen, cfg, Q, n, dev):
+    """A generation's three batched uniform draws (tournaments, gene
+    decisions, unit moves), shaped without the island axis, as JAX's
+    ``random.uniform`` calls of ``ga_jax``'s step shape them."""
+    return (torch.rand((2, Q, cfg.tournament), generator=gen, dtype=_F8,
+                       device=dev),
+            torch.rand((7, Q, n), generator=gen, dtype=_F8, device=dev),
+            torch.rand((4, MOVE_ATTEMPTS, Q, n), generator=gen, dtype=_F8,
+                       device=dev))
+
+
+def _step(consts, win, cfg, opts, objective, elite, draws, carry):
     """One generation of every island: fitness + best tracking, then the
-    next epoch, then the freeze of done islands. ``carry`` is a dict of
-    device tensors with a leading island axis; returns the new one."""
+    next epoch from ``draws`` (``_draws``), then the freeze of done
+    islands. ``carry`` is a dict of device tensors with a leading island
+    axis; returns the new one."""
     Px, Py, co, rd = carry["Px"], carry["Py"], carry["co"], carry["rd"]
     G, pop, n, X = Px.shape
     Y = Py.shape[3]
     Q = pop - elite
-    dev = Px.device
     # steps > 0 mirrors the host engines' loop shape: generation 0
     # always evaluates (its history entry + best genome must exist), the
     # early-stop check runs after it — so patience <= 0 stops after
@@ -142,12 +153,8 @@ def _step(consts, win, cfg, opts, objective, elite, gen, carry):
 
     # ------------------------------------------- selection + crossover
     # Three batched uniform draws cover every random decision of the
-    # generation, shaped without the island axis.
-    ut = torch.rand((2, Q, cfg.tournament), generator=gen, dtype=_F8,
-                    device=dev)
-    um = torch.rand((7, Q, n), generator=gen, dtype=_F8, device=dev)
-    uv = torch.rand((4, MOVE_ATTEMPTS, Q, n), generator=gen, dtype=_F8,
-                    device=dev)
+    # generation.
+    ut, um, uv = draws
 
     def tourney(u):                       # [Q, k] → winners [G, Q]
         idx = torch.floor(u * pop).long().expand(G, Q, cfg.tournament)
@@ -221,7 +228,7 @@ def _evolve(consts, win, Px0, Py0, co0, rd0, *, cfg, options, objective,
     win = {k: evaluator_torch.upload(v, dev) for k, v in win.items()}
     carry = {k: evaluator_torch.upload(a, dev) for k, a in
              (("Px", Px0), ("Py", Py0), ("co", co0), ("rd", rd0))}
-    G, _, n, X = carry["Px"].shape
+    G, pop, n, X = carry["Px"].shape
     Y = carry["Py"].shape[3]
     carry.update({
         "best_obj": torch.full((G,), float("inf"), dtype=_F8, device=dev),
@@ -244,8 +251,9 @@ def _evolve(consts, win, Px0, Py0, co0, rd0, *, cfg, options, objective,
             L = min(chunk_len, gens_left)
             hist = []
             for _ in range(L):
+                draws = _draws(gen, cfg, pop - elite, n, dev)
                 carry = _step(consts, win, cfg, options, objective, elite,
-                              gen, carry)
+                              draws, carry)
                 hist.append(carry["best_obj"])
             gens_left -= L
             # One device→host copy per chunk: the chunk's history, the

@@ -7,9 +7,10 @@
 // GQA (query head h reads KV head h / (H / KV)), causal and sliding-window
 // masks (kpos > qpos - window), tanh soft-capping, a custom scale, and a
 // value width Dv that may differ from the key width Dk. It takes Dk, Dv
-// <= 256, and MLA's absorbed latent head: Dk and Dv that round up to 288
+// <= 256, and MLA's absorbed latent heads: Dk and Dv that round up to 288
 // and 256 (minicpm3-4b's kv_lora 256 + rope 32 keys over kv_lora 256
-// values, one KV head); kMaxHeadDim and FLASH_WIDE_PAIRS are the one list
+// values, one KV head) or to 576 and 512 (deepseek-v2's kv_lora 512 + rope
+// 64 over kv_lora 512); kMaxHeadDim and FLASH_WIDE_PAIRS are the one list
 // of both.
 //
 // Layout: q (B, Sq, H, Dk), k (B, Skv, KV, Dk), v (B, Skv, KV, Dv), read
@@ -31,15 +32,24 @@
 // before key 0 of a shorter KV sequence) is not defined by either
 // version. The two dtypes take two kernels.
 //
+// Value widths past 256 are split across blocks: a grid axis of Dv / 256
+// value slices, each block computing the whole of S = Q K^T and the
+// softmax but staging and writing only its slice's 256 value columns, so
+// that the output accumulator keeps 128 registers a lane (512 columns
+// would take 256, more than a thread has). Both slices of a row compute
+// the same S and P bit for bit, so its two halves use the same weights;
+// the price is Q K^T computed once a slice.
+//
 // f32 (`flash_f32_kernel`), on the f32 CUDA cores (TF32 would miss the
 // f32 limits): a block owns 32 query rows and loops over 64-key tiles.
 // Each KV tile is staged in shared memory as f32 (K rows padded to an odd
-// stride, so lanes reading different rows hit different banks); the Q
-// tile is staged once. Each of the 4 warps owns 8 query rows: a lane
-// scores keys `lane` and `lane + 32` against all 8 rows, the row max and
-// sum are warp shuffles, and for P V a lane keeps output columns
-// `lane + 32 i` of the 8 rows in registers while the probabilities are
-// broadcast by shuffles.
+// stride, so lanes reading different rows hit different banks; a key
+// wider than kF32KChunk = 288 is staged in chunks of that width, one
+// after the other, for the shared memory); the Q tile is staged once.
+// Each of the 4 warps owns 8 query rows: a lane scores keys `lane` and
+// `lane + 32` against all 8 rows, the row max and sum are warp shuffles,
+// and for P V a lane keeps output columns `lane + 32 i` of the 8 rows in
+// registers while the probabilities are broadcast by shuffles.
 //
 // bf16 (`flash_bf16_kernel`): FlashAttention-2's design on the tensor
 // cores through mma.sync m16n8k16 (bf16 in, f32 sums; mma_sm90.cuh). A
@@ -62,13 +72,19 @@
 // log2 units; (3) the online softmax, its row max over the 4 lanes of a
 // quad by __shfl_xor_sync 1 and 2 (each lane keeps a partial row sum,
 // summed over the quad once at the end), exponentials by ex2.approx;
-// (4) P rounded to bf16 and turned in registers from the accumulator
-// layout into A fragments; (5) O += P V, V's B fragments by
-// ldmatrix.trans. P in bf16 is the one rounding the reference does not
-// make (it keeps P in f32): up to 2^-9 of each probability, inside the
-// bf16 limits (PERF.md). A row stride, head stride or base that is not
-// 16-byte aligned, or a head dim that is not a multiple of 8, takes an
-// element-by-element load into the same tiles, a branch of this kernel.
+// (4) P turned in registers from the accumulator layout into A
+// fragments; (5) O += P V, V's B fragments by ldmatrix.trans. The
+// reference keeps P in f32. Up to head dim 128 (kSplitP) P is split into
+// bf16 hi + lo (hi = bf16(P), lo = bf16(P - hi)) and O += P_lo V + P_hi
+// V: ~2^-17 a probability, for twice the P V products. One bf16 P rounds
+// each probability by up to 2^-9, which a 48-layer random bf16 encoder
+// (hubert-xlarge, head dim 80) carries on to its logits beyond the plain
+// version's own spread (PERF.md). Wider heads keep one bf16 P: with the
+// split, the instances at 160, 256 and MLA's heads spill registers, and
+// without it they read within their limits (PERF.md). A row stride, head
+// stride or base that is not 16-byte aligned, or a head dim that is not a
+// multiple of 8, takes an element-by-element load into the same tiles, a
+// branch of this kernel.
 //
 // What bounds it on an H100: at the smollm-360m prefill shape (B=4,
 // S=1024, H=15, KV=5, D=64, bf16, causal) the work is ~8 GFLOP against
@@ -77,7 +93,10 @@
 // does not reach). At zamba2-2.7b's (B=4, S=1024, H=KV=32, D=160) the
 // bytes bound it. At minicpm3-4b's MLA shape (B=4, S=1024, H=40, KV=1,
 // Dk 288, Dv 256) ~91 GFLOP against ~182 MB, ~500 FLOP per byte: bound
-// by operations; its one KV head is read by all 40 heads from L2.
+// by operations; its one KV head is read by all 40 heads from L2. At
+// deepseek-v2's (B=4, S=1024, H=128, KV=1, Dk 576, Dv 512) ~585 GFLOP
+// against ~1.15 GB, bound by operations (0.59 ms); the value split
+// computes Q K^T twice, which the bound counts once.
 //
 // C interface for ctypes: launches on the given stream, does not
 // synchronise, allocates nothing, returns cudaGetLastError().
@@ -131,28 +150,39 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// NV = ceil(Dv / 32): output columns per lane, kept in registers.
+// Widest key chunk and value slice of the f32 kernel, for the shared
+// memory (at Dk 576: Q 72 KB + a K chunk 72 KB + a V slice 64 KB).
+constexpr int kF32KChunk = 288;
+constexpr int kF32VSlice = 256;
+
+// NV = ceil(slice width / 32): output columns per lane, kept in registers.
 template <int NV>
 __global__ void __launch_bounds__(kThreads)
 flash_f32_kernel(const Params p) {
   extern __shared__ float smem[];
-  const int Dk = p.Dk, Dv = p.Dv;
-  const int ldk = Dk | 1;             // odd row stride: no bank conflicts
+  const int Dk = p.Dk;
+  const int dkc = min(Dk, kF32KChunk);  // key columns staged at a time
+  const int ldk = dkc | 1;            // odd row stride: no bank conflicts
+  // blockIdx.y = slice * H + h: value slice `slice` of head h.
+  const int h = blockIdx.y % p.H, slice = blockIdx.y / p.H;
+  const int Dv = min(kF32VSlice, p.Dv - slice * kF32VSlice);
   float* qs = smem;                   // kBQ x Dk
   float* ks = qs + kBQ * Dk;          // kBK x ldk
   float* vs = ks + kBK * ldk;         // kBK x Dv
 
   const int n_qt = (p.Sq + kBQ - 1) / kBQ;
   const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.x)) * kBQ;
-  const int h = blockIdx.y, b = blockIdx.z;
+  const int b = blockIdx.z;
   const int kvh = h / (p.H / p.KV);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int r0 = warp * kRows;
 
   const float* qg = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
   const float* kg = static_cast<const float*>(p.k) + b * p.k_sb + kvh * p.k_sh;
-  const float* vg = static_cast<const float*>(p.v) + b * p.v_sb + kvh * p.v_sh;
-  float* og = static_cast<float*>(p.o) + b * p.o_sb + h * p.o_sh;
+  const float* vg = static_cast<const float*>(p.v) + b * p.v_sb +
+                    kvh * p.v_sh + slice * kF32VSlice;
+  float* og = static_cast<float*>(p.o) + b * p.o_sb + h * p.o_sh +
+              slice * kF32VSlice;
 
   for (int i = tid; i < kBQ * Dk; i += kThreads) {
     const int r = i / Dk, d = i - r * Dk, qi = q0 + r;
@@ -174,31 +204,36 @@ flash_f32_kernel(const Params p) {
   }
 
   for (int k0 = kv_lo; k0 < kv_hi; k0 += kBK) {
-    __syncthreads();                  // last tile consumed; Q tile visible
-    for (int i = tid; i < kBK * Dk; i += kThreads) {
-      const int r = i / Dk, d = i - r * Dk, kj = k0 + r;
-      ks[r * ldk + d] = kj < p.Skv ? kg[kj * p.k_ss + d] : 0.f;
-    }
-    for (int i = tid; i < kBK * Dv; i += kThreads) {
-      const int r = i / Dv, d = i - r * Dv, kj = k0 + r;
-      vs[i] = kj < p.Skv ? vg[kj * p.v_ss + d] : 0.f;
-    }
-    __syncthreads();
-
-    // Scores of keys (lane, lane + 32) against the warp's 8 rows.
+    // Scores of keys (lane, lane + 32) against the warp's 8 rows, over
+    // the key's chunks in order (one chunk up to Dk 288).
     float s[kRows][2];
 #pragma unroll
     for (int r = 0; r < kRows; ++r) s[r][0] = s[r][1] = 0.f;
-    const float* ka = ks + lane * ldk;
-    const float* kb = ks + (lane + 32) * ldk;
-    const float* qw = qs + r0 * Dk;
-    for (int d = 0; d < Dk; ++d) {
-      const float x0 = ka[d], x1 = kb[d];
+    for (int d0 = 0; d0 < Dk; d0 += dkc) {
+      const int w = min(dkc, Dk - d0);
+      __syncthreads();                // last chunk or tile consumed
+      for (int i = tid; i < kBK * w; i += kThreads) {
+        const int r = i / w, d = i - r * w, kj = k0 + r;
+        ks[r * ldk + d] = kj < p.Skv ? kg[kj * p.k_ss + d0 + d] : 0.f;
+      }
+      if (d0 == 0) {
+        for (int i = tid; i < kBK * Dv; i += kThreads) {
+          const int r = i / Dv, d = i - r * Dv, kj = k0 + r;
+          vs[i] = kj < p.Skv ? vg[kj * p.v_ss + d] : 0.f;
+        }
+      }
+      __syncthreads();
+      const float* ka = ks + lane * ldk;
+      const float* kb = ks + (lane + 32) * ldk;
+      const float* qw = qs + r0 * Dk + d0;
+      for (int d = 0; d < w; ++d) {
+        const float x0 = ka[d], x1 = kb[d];
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float qv = qw[r * Dk + d];
-        s[r][0] = fmaf(qv, x0, s[r][0]);
-        s[r][1] = fmaf(qv, x1, s[r][1]);
+        for (int r = 0; r < kRows; ++r) {
+          const float qv = qw[r * Dk + d];
+          s[r][0] = fmaf(qv, x0, s[r][0]);
+          s[r][1] = fmaf(qv, x1, s[r][1]);
+        }
       }
     }
 
@@ -263,22 +298,25 @@ flash_f32_kernel(const Params p) {
 
 template <int NV>
 cudaError_t launch_f32(const Params& p, int B, cudaStream_t stream) {
+  const int dv = p.Dv < kF32VSlice ? p.Dv : kF32VSlice;
+  const int dkc = p.Dk < kF32KChunk ? p.Dk : kF32KChunk;
   const size_t smem =
-      sizeof(float) * (size_t(kBQ) * p.Dk + size_t(kBK) * (p.Dk | 1) +
-                       size_t(kBK) * p.Dv);
+      sizeof(float) * (size_t(kBQ) * p.Dk + size_t(kBK) * (dkc | 1) +
+                       size_t(kBK) * dv);
   auto* fn = flash_f32_kernel<NV>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         fn, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
     if (e != cudaSuccess) return e;
   }
-  const dim3 grid((p.Sq + kBQ - 1) / kBQ, p.H, B);
+  const int slices = (p.Dv + kF32VSlice - 1) / kF32VSlice;
+  const dim3 grid((p.Sq + kBQ - 1) / kBQ, p.H * slices, B);
   fn<<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
 cudaError_t dispatch_f32(const Params& p, int B, cudaStream_t stream) {
-  switch ((p.Dv + 31) / 32) {
+  switch (((p.Dv < kF32VSlice ? p.Dv : kF32VSlice) + 31) / 32) {
     case 1: return launch_f32<1>(p, B, stream);
     case 2: return launch_f32<2>(p, B, stream);
     case 3: return launch_f32<3>(p, B, stream);
@@ -315,6 +353,9 @@ struct FlashTiles {
   static constexpr int kD = DK > DV ? DK : DV;
   static constexpr int kBKV = kD <= 160 ? 64 : 32;  // keys per KV tile
   static constexpr bool kQInRegs = DK <= 192;
+  // P split into bf16 hi + lo for P V, where the registers leave room
+  // for it: one bf16 P at wider heads (their spare registers go to O).
+  static constexpr bool kSplitP = kD <= 128;
   static constexpr int kLdK = DK + 8;               // smem row stride, Q, K
   static constexpr int kLdV = DV + 8;               // ... V
   static constexpr int kQ = kBQ16 * kLdK;           // bf16 in the Q tile
@@ -380,11 +421,15 @@ flash_bf16_kernel(const Params p) {
   const int kvh = h / (p.H / p.KV);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int qw0 = q0 + 16 * warp;     // this warp's first query row
+  // This block's value slice: columns DV * blockIdx.y on, dv of them.
+  const int dv0 = DV * static_cast<int>(blockIdx.y);
+  const int dv = min(DV, p.Dv - dv0);
 
   const bf16* qg = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
   const bf16* kg = static_cast<const bf16*>(p.k) + b * p.k_sb + kvh * p.k_sh;
-  const bf16* vg = static_cast<const bf16*>(p.v) + b * p.v_sb + kvh * p.v_sh;
-  bf16* og = static_cast<bf16*>(p.o) + b * p.o_sb + h * p.o_sh;
+  const bf16* vg =
+      static_cast<const bf16*>(p.v) + b * p.v_sb + kvh * p.v_sh + dv0;
+  bf16* og = static_cast<bf16*>(p.o) + b * p.o_sb + h * p.o_sh + dv0;
 
   // KV range that any row of this query tile can see.
   int kv_lo = 0, kv_hi = p.Skv;
@@ -396,7 +441,7 @@ flash_bf16_kernel(const Params p) {
     const int k0 = kv_lo + t * kBKV, s = t % 2;
     stage_rows<kBKV, DK>(ks + s * Tiles::kK, kg, p.k_ss, p.Skv, k0, p.Dk,
                          p.vec_k, tid);
-    stage_rows<kBKV, DV>(vs + s * Tiles::kV, vg, p.v_ss, p.Skv, k0, p.Dv,
+    stage_rows<kBKV, DV>(vs + s * Tiles::kV, vg, p.v_ss, p.Skv, k0, dv,
                          p.vec_v, tid);
   };
 
@@ -532,22 +577,35 @@ flash_bf16_kernel(const Params p) {
       }
     }
 
-    // (4) + (5) O += P V, P's A fragments packed from S's accumulators:
-    // keys 16 kk .. 16 kk + 15 are S n-tiles 2 kk (k 0-7) and 2 kk + 1.
+    // (4) + (5) O += P V, P's A fragments packed from S's accumulators
+    // (with kSplitP each f32 probability split into bf16 hi + lo, two
+    // mma, ~16 bits of P where one bf16 keeps 8): keys 16 kk .. 16 kk +
+    // 15 are S n-tiles 2 kk (k 0-7) and 2 kk + 1.
 #pragma unroll
     for (int kk = 0; kk < kBKV / 16; ++kk) {
-      const uint32_t pa[4] = {
-          mma::pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-          mma::pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-          mma::pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-          mma::pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+      uint32_t ph[4], pl[4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float p0 = s[2 * kk + h][2 * e], p1 = s[2 * kk + h][2 * e + 1];
+          if constexpr (Tiles::kSplitP)
+            mma::split_bf16(p0, p1, ph[2 * h + e], pl[2 * h + e]);
+          else
+            ph[2 * h + e] = mma::pack_bf16(p0, p1);
+        }
+      }
 #pragma unroll
       for (int j = 0; j < NO; j += 2) {
         uint32_t r[4];
         mma::ldmatrix_x4_trans(r, mma::smem_addr(
             vst + (16 * kk + lrow) * kLdV + 8 * j + lcol));
-        mma::mma_bf16_16816(o[j], pa, r[0], r[1]);
-        mma::mma_bf16_16816(o[j + 1], pa, r[2], r[3]);
+        if constexpr (Tiles::kSplitP) {
+          mma::mma_bf16_16816(o[j], pl, r[0], r[1]);
+          mma::mma_bf16_16816(o[j + 1], pl, r[2], r[3]);
+        }
+        mma::mma_bf16_16816(o[j], ph, r[0], r[1]);
+        mma::mma_bf16_16816(o[j + 1], ph, r[2], r[3]);
       }
     }
     __syncthreads();                    // stage t % 2 free for tile t + 2
@@ -568,20 +626,24 @@ flash_bf16_kernel(const Params p) {
     for (int j = 0; j < NO; ++j) {
       const int d = 8 * j + mma::frag_col(lane, 0);
       const float v0 = o[j][2 * r] * inv, v1 = o[j][2 * r + 1] * inv;
-      if (p.vec_o && d + 1 < p.Dv) {
+      if (p.vec_o && d + 1 < dv) {
         *reinterpret_cast<uint32_t*>(orow + d) = mma::pack_bf16(v0, v1);
       } else {
-        if (d < p.Dv) orow[d] = __float2bfloat16(v0);
-        if (d + 1 < p.Dv) orow[d + 1] = __float2bfloat16(v1);
+        if (d < dv) orow[d] = __float2bfloat16(v0);
+        if (d + 1 < dv) orow[d + 1] = __float2bfloat16(v1);
       }
     }
   }
 }
 
+// A value width DV past 256 runs as flash_bf16_kernel<DK, 256> over a
+// grid axis of DV / 256 value slices (<576, 512>: Q 74,752 B + K 2 x
+// 37,376 + V 2 x 16,896 = 183,296 B of shared memory).
 template <int DK, int DV = DK>
 cudaError_t launch_bf16(const Params& p, int B, cudaStream_t stream) {
-  constexpr size_t smem = FlashTiles<DK, DV>::kSmem;
-  auto* fn = flash_bf16_kernel<DK, DV>;
+  constexpr int DVS = DV > 256 ? 256 : DV;
+  constexpr size_t smem = FlashTiles<DK, DVS>::kSmem;
+  auto* fn = flash_bf16_kernel<DK, DVS>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         fn, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
@@ -590,7 +652,8 @@ cudaError_t launch_bf16(const Params& p, int B, cudaStream_t stream) {
   const long long blocks =
       static_cast<long long>((p.Sq + kBQ16 - 1) / kBQ16) * p.H * B;
   if (blocks > 0x7fffffff) return cudaErrorInvalidConfiguration;
-  fn<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(p);
+  const dim3 grid(static_cast<unsigned>(blocks), (p.Dv + DVS - 1) / DVS);
+  fn<<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -598,10 +661,11 @@ cudaError_t launch_bf16(const Params& p, int B, cudaStream_t stream) {
 // kernel.py, reads these two lines): Dk, Dv <= kMaxHeadDim (the bf16
 // kernel's <D, D> instances, D the larger rounded up to 16), and the
 // (DK, DV) pairs, rounded up to 16, of FLASH_WIDE_PAIRS, each its own
-// <DK, DV> instance: MLA's latent head (minicpm3-4b, 256 + 32 rope keys
-// over 256 values).
+// launch: MLA's latent heads, minicpm3-4b's (256 + 32 rope keys over 256
+// values, the <288, 256> instance) and deepseek-v2's (512 + 64 rope keys
+// over 512 values, <576, 256> over two value slices).
 constexpr int kMaxHeadDim = 256;
-#define FLASH_WIDE_PAIRS(X) X(288, 256)
+#define FLASH_WIDE_PAIRS(X) X(288, 256) X(576, 512)
 
 int up16(int d) { return (d + 15) / 16 * 16; }
 

@@ -3,7 +3,9 @@
 ``flash_attention`` in the JAX package.
 
 The kernel is built for head dims Dk, Dv ≤ 256 and for MLA's absorbed
-latent head (Dk, Dv rounding up to 288, 256). The wrapper checks what
+latent heads (Dk, Dv rounding up to 288, 256: minicpm3-4b; or to 576,
+512: deepseek-v2, whose 512 value columns run as two slices of 256 in
+blocks of their own). The wrapper checks what
 the kernel takes and raises on anything else, allocates the output, and
 launches on PyTorch's current stream without synchronising.
 ``flash_attention.launches`` counts the launches.

@@ -8,9 +8,18 @@ On the card (the default), for any ported arch (``--arch`` takes
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-20b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch minicpm3-4b
-mixtral-8x22b's 141B parameters (~280 GB in bf16) need more than one
-80 GB card, which the serve engine does not shard yet; one card serves
-it at the reduced size (`--reduced`).
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch pixtral-12b
+pixtral-12b serves text prompts (the engine feeds tokens only, as the
+JAX package's does; a patch prefill goes through ``models.forward`` with
+"patches" in the batch). mixtral-8x22b's 141B parameters (~280 GB in
+bf16) and deepseek-v2-236b's 236B (~470 GB) need more than one 80 GB
+card, which the serve engine does not shard yet; one card serves them
+at the reduced size (`--reduced`):
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch deepseek-v2-236b --reduced
+hubert-xlarge is an encoder with no decode path: the engine refuses it
+(ValueError), as the JAX package's does; it runs through
+``models.forward(model, {"frames": ...}, mode="train")``.
 On the CPU, with the kernels' plain versions, at the reduced size:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b \
         --reduced --device cpu

@@ -2,7 +2,8 @@
 median of 7 CUDA-event timings of 20 back-to-back calls.
 
 ``--kernel flash`` (the default) times flash attention beside PyTorch's
-``scaled_dot_product_attention``; with ``--check`` it also reads each
+``scaled_dot_product_attention`` (at smollm-360m's, zamba2-2.7b's,
+deepseek-v2's MLA and hubert-xlarge's shapes); with ``--check`` it also reads each
 shape's error against the plain version: the largest, the largest beyond
 rtol 1e-2, and the same two for the plain version with one 64-key tile
 dropped from the last 64 rows (what a kernel that skipped a tile would
@@ -37,7 +38,14 @@ from ..kernels.ssm_scan.kernel import ssm_scan
 SHAPES = {"smollm-360m": ((4, 1024, 1024, 15, 5, 64, 64),
                           dict(causal=True), 100),
           "zamba2-2.7b": ((4, 1024, 1024, 32, 32, 160, 160),
-                          dict(causal=True, window=4096), 101)}
+                          dict(causal=True, window=4096), 101),
+          # MLA's absorbed latent head: kv_lora 512 + rope 64 keys over
+          # 512 values, one KV head, scale 1/sqrt(qk_nope + qk_rope)
+          "deepseek-v2-236b": ((4, 1024, 1024, 128, 1, 576, 512),
+                               dict(causal=True, scale=192 ** -0.5), 102),
+          # the audio encoder over 30 s clips: not causal
+          "hubert-xlarge": ((4, 1500, 1500, 16, 16, 80, 80),
+                            dict(causal=False), 103)}
 
 
 def burst_ms(fn, calls=20, reps=7, warmup=3):
@@ -139,7 +147,8 @@ def main(argv=None):
         row = {"kernel_burst_ms": burst_ms(
                    lambda: flash_attention(q, k, v, **kw)),
                "sdpa_burst_ms": burst_ms(
-                   lambda: sdpa(qh, kh, vh, is_causal=True,
+                   lambda: sdpa(qh, kh, vh, is_causal=kw["causal"],
+                                scale=kw.get("scale"),
                                 enable_gqa=H != KV))}
         if args.check:
             want = blockwise_attention(q, k, v, **kw)
@@ -147,8 +156,8 @@ def main(argv=None):
             row["err"], row["err_beyond_rtol"] = errors(
                 want, flash_attention(q, k, v, **kw))
             row["drop_tile_err"], row["drop_tile_err_beyond_rtol"] = errors(
-                want, blockwise_attention(q, k, v, causal=True,
-                                          window=Sq - 64))
+                want, blockwise_attention(q, k, v,
+                                          **{**kw, "window": Sq - 64}))
         out[name] = row
     print(json.dumps(out), flush=True)
 

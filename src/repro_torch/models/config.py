@@ -105,5 +105,16 @@ class ModelConfig:
         m = 256
         return ((self.vocab_size + m - 1) // m) * m
 
+    @property
+    def sub_quadratic(self) -> bool:
+        """Can this arch serve a 500k context (bounded per-token state)?"""
+        if self.family in ("ssm",):
+            return True
+        if self.family == "hybrid":
+            return True             # SSM backbone + windowed shared attn
+        if self.window is not None and self.local_global_period == 0:
+            return True             # pure SWA (mixtral)
+        return False
+
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)

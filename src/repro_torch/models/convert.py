@@ -8,9 +8,13 @@ every leaf already converted to a numpy array (the port imports no JAX):
 for gemma2's pairs as two trees ``{"local", "global"}`` of L/2 layers
 each (interleaved back into layer order here), for the hybrid family on
 two axes, (groups, period), and beside them the unstacked
-``shared_attn`` tree of the one shared attention block. bf16 leaves (a
-``param_dtype`` of bfloat16, as mixtral's) arrive as numpy's bfloat16
-extension type and are read through f32.
+``shared_attn`` tree of the one shared attention block; for the moe
+family's leading dense layers a ``dense_blocks`` tree of
+``first_dense_layers`` layers (layers 0..nd−1 here, ``blocks`` the rest);
+the frontends' ``patch_proj`` (frontend_dim, D), ``frame_proj``
+(frontend_dim, D) and ``mask_emb`` (D,) at the top. bf16 leaves (a
+``param_dtype`` of bfloat16, as mixtral's and deepseek-v2's) arrive as
+numpy's bfloat16 extension type and are read through f32.
 """
 from __future__ import annotations
 
@@ -46,6 +50,12 @@ _MOE = {("moe", n): f"moe.{n}" for n in (
     "router",                             # (L, D, E)
     "w_gate", "w_up",                     # (L, E, D, F)
     "w_down")}                            # (L, E, F, D)
+_SHARED_EXPERTS = {("moe", "shared", n): f"moe.shared.{n}" for n in (
+    "w_gate", "w_up",                     # (L, D, F · n_shared)
+    "w_down")}                            # (L, F · n_shared, D)
+# Top-level leaves of the frontends, (frontend_dim, D) and (D,).
+_FRONTEND = {"vision_stub": ("patch_proj",),
+             "audio_stub": ("frame_proj", "mask_emb")}
 _POST_NORMS = {("ln1b",): "ln1b", ("ln2b",): "ln2b"}   # gemma2, (L, D)
 _BLOCK_LEAVES = {
     "ssm": {
@@ -90,16 +100,20 @@ _SHARED_LEAVES = {
 }
 
 
-def _block_leaves(cfg: ModelConfig) -> dict:
-    if cfg.family not in ("dense", "moe"):
+def _block_leaves(cfg: ModelConfig, moe: bool) -> dict:
+    """The leaves of one block: an MoE block's (``moe``) or an MLP
+    block's, for the attention families."""
+    if cfg.family in _BLOCK_LEAVES:
         return _BLOCK_LEAVES[cfg.family]
     if cfg.attn_type == "mla":
         attn = {("attn", n): f"attn.{n}"
                 for n in _MLA_Q[bool(cfg.q_lora_rank)] + _MLA_KV}
     else:
         attn = _ATTN
-    return {("ln1",): "ln1", ("ln2",): "ln2", **attn,
-            **(_MOE if cfg.family == "moe" else _MLP),
+    mix = _MLP
+    if moe:
+        mix = {**_MOE, **(_SHARED_EXPERTS if cfg.n_shared_experts else {})}
+    return {("ln1",): "ln1", ("ln2",): "ln2", **attn, **mix,
             **(_POST_NORMS if cfg.local_global_period else {})}
 
 
@@ -134,25 +148,34 @@ def from_jax_params(cfg: ModelConfig, params: dict) -> dict:
              "final_norm": tensor("final_norm", params["final_norm"])}
     if not cfg.tie_embeddings:
         state["lm_head"] = tensor("lm_head", params["lm_head"])
+    for name in _FRONTEND.get(cfg.frontend, ()):
+        state[name] = tensor(name, params[name])
     hybrid = cfg.family == "hybrid"
-    for path, name in _block_leaves(cfg).items():
-        if cfg.local_global_period:   # (L/2, ...) local and global stacks
-            pair = [np.asarray(_leaf(params["blocks"][k], path))
-                    for k in ("local", "global")]
-            leaf = np.stack(pair, axis=1).reshape(-1, *pair[0].shape[1:])
-        else:
-            leaf = np.asarray(_leaf(params["blocks"], path))
-        if hybrid:   # (groups, period, ...) -> (layers, ...)
-            if leaf.shape[1] != cfg.hybrid_attn_period:
-                raise ValueError(f"blocks/{'/'.join(path)} has groups of "
-                                 f"{leaf.shape[1]} layers, config says "
-                                 f"{cfg.hybrid_attn_period}")
-            leaf = leaf.reshape(-1, *leaf.shape[2:])
-        if leaf.shape[0] != cfg.n_layers:
-            raise ValueError(f"blocks/{'/'.join(path)} has {leaf.shape[0]} "
-                             f"layers, config says {cfg.n_layers}")
-        for i in range(cfg.n_layers):
-            state[f"blocks.{i}.{name}"] = tensor(name, leaf[i])
+    nd = cfg.first_dense_layers
+    # (tree, its first layer, its layer count, MoE blocks or not)
+    stacks = [("blocks", nd, cfg.n_layers - nd, cfg.family == "moe")]
+    if nd:
+        stacks.insert(0, ("dense_blocks", 0, nd, False))
+    for tree, first, n_layers, moe in stacks:
+        for path, name in _block_leaves(cfg, moe).items():
+            where = f"{tree}/{'/'.join(path)}"
+            if cfg.local_global_period:   # (L/2, ...) local, global stacks
+                pair = [np.asarray(_leaf(params[tree][k], path))
+                        for k in ("local", "global")]
+                leaf = np.stack(pair, axis=1).reshape(-1, *pair[0].shape[1:])
+            else:
+                leaf = np.asarray(_leaf(params[tree], path))
+            if hybrid:   # (groups, period, ...) -> (layers, ...)
+                if leaf.shape[1] != cfg.hybrid_attn_period:
+                    raise ValueError(f"{where} has groups of {leaf.shape[1]} "
+                                     "layers, config says "
+                                     f"{cfg.hybrid_attn_period}")
+                leaf = leaf.reshape(-1, *leaf.shape[2:])
+            if leaf.shape[0] != n_layers:
+                raise ValueError(f"{where} has {leaf.shape[0]} layers, "
+                                 f"config says {n_layers}")
+            for i in range(n_layers):
+                state[f"blocks.{first + i}.{name}"] = tensor(name, leaf[i])
     if hybrid:
         for path, name in _SHARED_LEAVES.items():
             state[name] = tensor(name, _leaf(params["shared_attn"], path))

@@ -12,10 +12,11 @@ and value width kv_lora:
     out   = (ctx · W^UV) · W^O
 
 Train and prefill attend through ``ops.attention`` (the CUDA flash
-kernel on the card, at minicpm3-4b's Dk 288 / Dv 256); the value is a
-view of the key's first kv_lora columns. Decode attends one token over
-the ring-buffer latent cache in plain PyTorch, as the JAX layer's
-einsums do. The cache tensors are written in place.
+kernel on the card, at minicpm3-4b's Dk 288 / Dv 256 and deepseek-v2's
+Dk 576 / Dv 512, whose value columns the kernel splits into two slices
+of 256); the value is a view of the key's first kv_lora columns. Decode
+attends one token over the ring-buffer latent cache in plain PyTorch, as
+the JAX layer's einsums do. The cache tensors are written in place.
 """
 from __future__ import annotations
 

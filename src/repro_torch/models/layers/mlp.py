@@ -41,7 +41,11 @@ class MoE(nn.Module):
     never read back), the experts run as batched products over E, and
     each token gathers its K outputs, weighted by its gate values
     rounded to the compute dtype. The values are JAX's; nothing syncs
-    with the host."""
+    with the host.
+
+    With ``cfg.n_shared_experts`` (deepseek-v2) a dense ``MLP`` of width
+    moe_d_ff · n_shared_experts, ``shared``, runs on every token in the
+    (B, S, D) layout and is added after the routed combine, as in JAX."""
 
     def __init__(self, cfg, dtype, device):
         super().__init__()
@@ -52,6 +56,8 @@ class MoE(nn.Module):
         self.router = w(D, E)
         self.w_gate, self.w_up, self.w_down = w(E, D, Fe), w(E, D, Fe), w(
             E, Fe, D)
+        if cfg.n_shared_experts:
+            self.shared = MLP(D, Fe * cfg.n_shared_experts, D, dtype, device)
         self.cfg = cfg
 
     def route(self, xg, T, gs, capacity_factor, dtype):
@@ -101,4 +107,7 @@ class MoE(nn.Module):
         me = probs.mean(0)
         ce = F.one_hot(sel, E).sum(1).float().mean(0) / K
         aux = (me * ce).sum() * E
-        return out[:T].reshape(B, S, D), aux
+        out = out[:T].reshape(B, S, D)
+        if cfg.n_shared_experts:
+            out = out + self.shared(x.to(dtype), cfg.act, dtype)
+        return out, aux

@@ -1,21 +1,27 @@
-"""Model assembly: the ``dense`` family (attention + gated MLP blocks;
-gemma2's local/global layer pairs with post-norms; MLA attention for
-minicpm3), the ``moe`` family (attention + top-k MoE blocks), the
-``ssm`` family (RWKV-6 time-mix + channel-mix blocks) and the ``hybrid``
-family (zamba2: Mamba-2 blocks, and one shared-weight attention block on
-concat(hidden, embed₀) after every ``hybrid_attn_period`` of them).
+"""Model assembly: the ``dense``, ``vlm`` and ``audio`` families
+(attention + gated MLP blocks; gemma2's local/global layer pairs with
+post-norms; MLA attention for minicpm3; pixtral's patch frontend;
+hubert's audio frontend and non-causal encoder), the ``moe`` family
+(attention + top-k MoE blocks, with deepseek-v2's shared experts and
+leading dense layers), the ``ssm`` family (RWKV-6 time-mix +
+channel-mix blocks) and the ``hybrid`` family (zamba2: Mamba-2 blocks,
+and one shared-weight attention block on concat(hidden, embed₀) after
+every ``hybrid_attn_period`` of them).
 
 ``init_model(cfg, seed, device) → Transformer`` (an ``nn.Module`` with a
 ``ModuleList`` of blocks) and ``forward(model, batch, mode, caches, pos)
-→ (logits, caches)``. Matmul weights and the embedding are stored in the
-compute dtype ``cfg.dtype``: the JAX package keeps them in
-``param_dtype`` and casts them at every use, which gives the same values.
-Norm scales, and the RWKV and Mamba-2 weights the JAX layers compute
-with in f32, stay f32. The options no ported arch uses yet (shared
-experts, leading dense layers, qk-norm, encoders, frontends) raise
-``NotImplementedError`` naming slice 13.
+→ (logits, caches)``; ``embed_inputs`` turns the batch ({"tokens"},
+with "patches" for the vision stub; {"frames"}, with an optional
+"mask", for the audio stub) into the first hidden state. Matmul weights
+and the embedding are stored in the compute dtype ``cfg.dtype``: the
+JAX package keeps them in ``param_dtype`` and casts them at every use,
+which gives the same values. Norm scales, and the RWKV and Mamba-2
+weights the JAX layers compute with in f32, stay f32. ``qk_norm``, which
+no config sets, raises ``NotImplementedError`` until a caller needs it.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 from torch import nn
@@ -31,7 +37,8 @@ from .layers.rwkv6 import ChannelMix, TimeMix, init_rwkv_state
 
 # family -> the attention types the port serves it with
 _FAMILIES = {"dense": ("gqa", "mla"), "moe": ("gqa", "mla"),
-             "ssm": ("none",), "hybrid": ("gqa",)}
+             "vlm": ("gqa",), "audio": ("gqa",), "ssm": ("none",),
+             "hybrid": ("gqa",)}
 _RWKV_STATE = ("shift_t", "shift_c", "wkv")
 _MAMBA_STATE = ("conv", "ssm")
 
@@ -42,19 +49,17 @@ def _check_supported(cfg: ModelConfig):
         "local_global_period": cfg.local_global_period not in (0, 2) or (
             cfg.local_global_period and cfg.n_layers % 2),
         "attn_type": cfg.attn_type not in _FAMILIES.get(cfg.family, ()),
-        "n_shared_experts": bool(cfg.n_shared_experts),
-        "first_dense_layers": bool(cfg.first_dense_layers),
         "qk_norm": cfg.qk_norm,
-        "is_encoder": cfg.is_encoder,
-        "frontend": cfg.frontend is not None,
+        "frontend": cfg.frontend not in (None, "vision_stub", "audio_stub"),
     }
     bad = [k for k, v in unsupported.items() if v]
     if bad:
         raise NotImplementedError(
-            f"{cfg.name}: the port serves the dense (GQA, MLA, gemma2's "
-            "local/global pairs), moe, RWKV-6 ssm and zamba2 hybrid "
-            f"families; unsupported: {', '.join(bad)} (slice 13, "
-            "ROADMAP.md queue A)")
+            f"{cfg.name}: the port serves the dense, vlm and audio (GQA, "
+            "MLA, gemma2's local/global pairs, the vision and audio "
+            "stubs), moe, RWKV-6 ssm and zamba2 hybrid families; "
+            f"unsupported: {', '.join(bad)} (qk_norm: no JAX config sets "
+            "it; it waits for a caller)")
     if cfg.family == "hybrid" and (
             cfg.hybrid_attn_period <= 0
             or cfg.n_layers % cfg.hybrid_attn_period):
@@ -82,18 +87,22 @@ def _f32_param(n, device):
 class Block(nn.Module):
     """ln1 → attention (GQA or MLA) [→ ln1b] → residual, ln2 → MLP or MoE
     [→ ln2b] → residual; the post-norms ln1b/ln2b only with gemma2's
-    local/global pairs."""
+    local/global pairs. ``moe=False`` in the moe family is one of its
+    leading dense layers (deepseek-v2's first), an MLP of width d_ff.
+    An encoder's attention is not causal."""
 
-    def __init__(self, cfg: ModelConfig, dtype, device, window=None):
+    def __init__(self, cfg: ModelConfig, dtype, device, window=None,
+                 moe=False):
         super().__init__()
         self.ln1 = _f32_param(cfg.d_model, device)
         self.ln2 = _f32_param(cfg.d_model, device)
         self.attn = (MLA if cfg.attn_type == "mla" else Attention)(
             cfg, dtype, device)
-        if cfg.family == "moe":
+        if moe:
             self.moe = MoE(cfg, dtype, device)
         else:
             self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.d_model, dtype, device)
+        self.is_moe = moe
         if cfg.local_global_period:
             self.ln1b = _f32_param(cfg.d_model, device)
             self.ln2b = _f32_param(cfg.d_model, device)
@@ -103,14 +112,15 @@ class Block(nn.Module):
     def forward(self, x, *, positions, cache, pos, mode, dtype):
         cfg = self.cfg
         h = rms_norm(x, self.ln1, cfg.norm_eps, plus_one=True)
-        kw = {} if cfg.attn_type == "mla" else {"window": self.window}
+        kw = {} if cfg.attn_type == "mla" else {
+            "window": self.window, "causal": not cfg.is_encoder}
         a, cache = self.attn(h, positions=positions, cache=cache, pos=pos,
                              mode=mode, dtype=dtype, **kw)
         if cfg.local_global_period:
             a = rms_norm(a, self.ln1b, cfg.norm_eps, plus_one=True)
         x = x + a
         h = rms_norm(x, self.ln2, cfg.norm_eps, plus_one=True)
-        if cfg.family == "moe":
+        if self.is_moe:
             m, _ = self.moe(h, dtype)       # the aux loss is for training
         else:
             m = self.mlp(h, cfg.act, dtype)
@@ -196,6 +206,13 @@ class Transformer(nn.Module):
         Vp, D = cfg.padded_vocab, cfg.d_model
         self.embed = weight(Vp, D, dtype=self.dtype, device=device)
         self.final_norm = _f32_param(D, device)
+        if cfg.frontend == "vision_stub":
+            self.patch_proj = weight(cfg.frontend_dim, D, dtype=self.dtype,
+                                     device=device)
+        if cfg.frontend == "audio_stub":
+            self.frame_proj = weight(cfg.frontend_dim, D, dtype=self.dtype,
+                                     device=device)
+            self.mask_emb = weight(D, dtype=self.dtype, device=device)
         if not cfg.tie_embeddings:
             self.lm_head = weight(D, Vp, dtype=self.dtype, device=device)
         if cfg.family in ("ssm", "hybrid"):
@@ -203,24 +220,34 @@ class Transformer(nn.Module):
             blocks = (block(cfg, self.dtype, device)
                       for _ in range(cfg.n_layers))
         else:
-            blocks = (Block(cfg, self.dtype, device, _layer_window(cfg, i))
+            nd = cfg.first_dense_layers
+            blocks = (Block(cfg, self.dtype, device, _layer_window(cfg, i),
+                            moe=cfg.family == "moe" and i >= nd)
                       for i in range(cfg.n_layers))
         self.blocks = nn.ModuleList(blocks)
         if cfg.family == "hybrid":
             self.shared = SharedAttention(cfg, self.dtype, device)
 
-    def forward(self, tokens, *, mode="train", caches=None, pos=None):
-        """tokens (B, S) → (logits (B, S, padded_vocab), caches)."""
+    def forward(self, batch, *, mode="train", caches=None, pos=None):
+        """batch ({"tokens" (B, S)}, with "patches" (B, Np, frontend_dim)
+        for the vision stub; {"frames" (B, S, frontend_dim)}, with an
+        optional bool "mask" (B, S), for the audio stub) → (logits (B,
+        S [+ Np], padded_vocab), caches). An encoder runs in
+        ``mode="train"`` only: the JAX package's prefill of an encoder,
+        which has no cache, fails in ``attn_apply``, and an encoder has
+        no decode."""
         cfg, dtype = self.cfg, self.dtype
-        x = self.embed[tokens].to(dtype)
-        if cfg.emb_scale_by_sqrt_dim:       # √D rounded to dtype, as in JAX
-            x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dtype)
+        if cfg.is_encoder and mode != "train":
+            raise ValueError(
+                f"{cfg.name} is an encoder: it runs through forward(mode="
+                f"'train') only (no cache, no decode), not mode={mode!r}")
+        x, positions, _ = embed_inputs(self, batch, mode, pos)
         if cfg.family == "ssm":
             x = self._rwkv_blocks(x, caches, mode)
         elif cfg.family == "hybrid":
-            x = self._hybrid_blocks(x, caches, mode, pos)
+            x = self._hybrid_blocks(x, positions, caches, mode, pos)
         else:
-            x = self._attention_blocks(x, caches, mode, pos)
+            x = self._attention_blocks(x, positions, caches, mode, pos)
         x = rms_norm(x, self.final_norm, cfg.norm_eps, plus_one=True)
         head = self.embed.T if cfg.tie_embeddings else self.lm_head
         logits = softcap(x.to(dtype) @ head.to(dtype),
@@ -231,18 +258,9 @@ class Transformer(nn.Module):
             logits = logits.masked_fill(pad, -1e9)
         return logits, caches
 
-    @staticmethod
-    def _positions(x, mode, pos):
-        B, S = x.shape[:2]
-        if mode == "decode":
-            return torch.full((B, 1), pos, device=x.device)
-        return torch.arange(S, device=x.device)[None, :]
-
-    def _attention_blocks(self, x, caches, mode, pos):
-        positions = self._positions(x, mode, pos)
+    def _attention_blocks(self, x, positions, caches, mode, pos):
         for i, blk in enumerate(self.blocks):
-            cache = None if caches is None else _layer_cache(
-                self.cfg, caches["layers"], i)
+            cache = _layer_cache(self.cfg, caches, i) if caches else None
             x, _ = blk(x, positions=positions, cache=cache, pos=pos,
                        mode=mode, dtype=self.dtype)
         return x
@@ -259,11 +277,10 @@ class Transformer(nn.Module):
                     state[n].copy_(new[n])
         return x
 
-    def _hybrid_blocks(self, x, caches, mode, pos):
+    def _hybrid_blocks(self, x, positions, caches, mode, pos):
         """Groups of ``hybrid_attn_period`` Mamba-2 blocks, each group
         followed by the shared attention block with the group's own
         cache. States are written back in place, as for RWKV-6."""
-        positions = self._positions(x, mode, pos)
         embed0 = x
         per = self.cfg.hybrid_attn_period
         for i, blk in enumerate(self.blocks):
@@ -282,9 +299,53 @@ class Transformer(nn.Module):
         return x
 
 
-def _layer_cache(cfg: ModelConfig, layers: dict, i: int) -> dict:
+def embed_inputs(model: Transformer, batch: dict, mode: str, pos=None):
+    """The JAX package's ``embed_inputs``: the batch → (x (B, S, D) in
+    the compute dtype, positions, loss_mask). The audio stub projects
+    ``frames`` by ``frame_proj`` and puts ``mask_emb`` at the frames that
+    ``mask`` marks (positions 0..S−1 whatever the mode, no loss mask);
+    otherwise the tokens are embedded (×√D rounded to the dtype for
+    gemma2), and the vision stub prepends ``patches`` projected by
+    ``patch_proj``, with positions 0..Np+S−1 and a loss mask of False
+    over the Np patches and True over the S tokens (None without
+    patches). Decode's one position is ``pos``."""
+    cfg, dtype = model.cfg, model.dtype
+    if cfg.frontend == "audio_stub":
+        x = batch["frames"].to(dtype) @ model.frame_proj.to(dtype)
+        if "mask" in batch:
+            x = torch.where(batch["mask"][..., None],
+                            model.mask_emb.to(dtype), x)
+        return x, torch.arange(x.shape[1], device=x.device)[None, :], None
+    tok = batch["tokens"]
+    B, S = tok.shape
+    x = model.embed[tok].to(dtype)
+    if cfg.emb_scale_by_sqrt_dim:       # √D rounded to dtype, as in JAX
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dtype)
+    loss_mask = None
+    if cfg.frontend == "vision_stub" and "patches" in batch:
+        pe = batch["patches"].to(dtype) @ model.patch_proj.to(dtype)
+        x = torch.cat([pe, x], dim=1)
+        Np = pe.shape[1]
+        loss_mask = torch.cat(
+            [torch.zeros(B, Np, dtype=torch.bool, device=x.device),
+             torch.ones(B, S, dtype=torch.bool, device=x.device)], dim=1)
+        S = S + Np
+    if mode == "decode":
+        positions = torch.full((B, 1), pos, device=x.device)
+    else:
+        positions = torch.arange(S, device=x.device)[None, :]
+    return x, positions, loss_mask
+
+
+def _layer_cache(cfg: ModelConfig, caches: dict, i: int) -> dict:
     """Layer i's views of the stacked caches: gemma2's pairs index their
-    local or global stack by i // 2."""
+    local or global stack by i // 2; the moe family's leading dense
+    layers take ``dense_layers`` and the rest ``layers`` from i − nd."""
+    layers, nd = caches["layers"], cfg.first_dense_layers
+    if i < nd:
+        layers = caches["dense_layers"]
+    else:
+        i -= nd
     if cfg.local_global_period:
         layers, i = layers["global" if i % 2 else "local"], i // 2
     return {n: t[i] for n, t in layers.items()}
@@ -294,7 +355,8 @@ def init_model(cfg: ModelConfig, seed: int = 0, device=None) -> Transformer:
     """Random weights from ``torch.Generator(device).manual_seed(seed)``,
     with the JAX package's init: truncated-normal fan-in matrices (MLA's
     and the MoE's too), the embedding scaled by √D, zero norm scales
-    (stored as offsets from 1);
+    (stored as offsets from 1), the frontends' projections at fan-in
+    ``frontend_dim`` and ``mask_emb`` at D;
     for RWKV-6 also the mixes at 0.5, the base decay ``w0`` at -4 and
     ``ln_x`` at 1; for Mamba-2 ``dt_bias``, ``A_log`` and the conv bias at
     0 and ``D`` at 1. ``device=None`` means the card."""
@@ -311,6 +373,11 @@ def init_model(cfg: ModelConfig, seed: int = 0, device=None) -> Transformer:
         fill(model.embed, D, D ** 0.5)
         if not cfg.tie_embeddings:
             fill(model.lm_head, D)
+        if cfg.frontend == "vision_stub":
+            fill(model.patch_proj, cfg.frontend_dim)
+        if cfg.frontend == "audio_stub":
+            fill(model.frame_proj, cfg.frontend_dim)
+            fill(model.mask_emb, D)
         model.final_norm.zero_()
         if cfg.family == "hybrid":
             _init_hybrid(model, cfg, fill)
@@ -327,7 +394,8 @@ def init_model(cfg: ModelConfig, seed: int = 0, device=None) -> Transformer:
 
 def _init_block(blk: Block, cfg: ModelConfig, fill):
     """An attention block with the JAX package's fan-ins (``init_attn``
-    or ``init_mla``, ``init_mlp`` or ``init_moe``)."""
+    or ``init_mla``, ``init_mlp`` or ``init_moe``, its shared experts an
+    ``init_mlp`` of width moe_d_ff · n_shared_experts)."""
     D, a = cfg.d_model, blk.attn
     if cfg.attn_type == "mla":
         r_q, r_kv = cfg.q_lora_rank, cfg.kv_lora_rank
@@ -346,9 +414,13 @@ def _init_block(blk: Block, cfg: ModelConfig, fill):
         for w in (a.wq, a.wk, a.wv):
             fill(w, D)
         fill(a.wo, cfg.n_heads * cfg.d_head)
-    if cfg.family == "moe":
+    if blk.is_moe:
         m, f = blk.moe, cfg.moe_d_ff
         fill(m.router, D)
+        if cfg.n_shared_experts:
+            fill(m.shared.w_gate, D)
+            fill(m.shared.w_up, D)
+            fill(m.shared.w_down, f * cfg.n_shared_experts)
     else:
         m, f = blk.mlp, cfg.d_ff
     fill(m.w_gate, D)
@@ -401,8 +473,11 @@ def _init_rwkv_block(blk: RWKVBlock, cfg: ModelConfig, fill):
 def init_caches(cfg: ModelConfig, batch: int, capacity: int,
                 dtype=torch.bfloat16, device=None) -> dict:
     """Serving state for the whole model, stacked along the layer axis:
-    dense and moe {"layers": {"k", "v": (L, B, C, KV, Dh)}}, C capped at
-    the window; gemma2's pairs {"layers": {"local": {"k", "v": (L/2, B,
+    dense, vlm and moe {"layers": {"k", "v": (L, B, C, KV, Dh)}}, C
+    capped at the window (with leading dense layers, ``first_dense_layers``
+    nd of them, the moe family's are split as JAX's: {"dense_layers": (nd,
+    ...), "layers": (L − nd, ...)}, for GQA and MLA alike); an encoder
+    {}; gemma2's pairs {"layers": {"local": {"k", "v": (L/2, B,
     min(C, window), KV, Dh)}, "global": {... (L/2, B, C, KV, Dh)}}}; MLA
     {"layers": {"ckv": (L, B, C, kv_lora), "krope": (L, B, C, rope)}};
     ssm {"layers": {"shift_t", "shift_c": (L, B, D), "wkv": (L, B, H, K,
@@ -430,25 +505,36 @@ def init_caches(cfg: ModelConfig, batch: int, capacity: int,
         return {"layers": {n: t.new_zeros((cfg.n_layers, *t.shape))
                            for n, t in one.items()}}
 
+    if cfg.is_encoder:
+        return {}
+
     def kv(n_layers, cap):
         shape = (n_layers, batch, cap, cfg.n_kv_heads, cfg.d_head)
         return {n: torch.zeros(shape, dtype=dtype, device=device)
                 for n in ("k", "v")}
-    if cfg.attn_type == "mla":
-        return {"layers": {
-            n: torch.zeros((cfg.n_layers, batch, capacity, w), dtype=dtype,
-                           device=device)
-            for n, w in (("ckv", cfg.kv_lora_rank),
-                         ("krope", cfg.qk_rope_dim))}}
+
+    def mla(n_layers):
+        return {n: torch.zeros((n_layers, batch, capacity, w), dtype=dtype,
+                               device=device)
+                for n, w in (("ckv", cfg.kv_lora_rank),
+                             ("krope", cfg.qk_rope_dim))}
     if cfg.local_global_period:
         half = cfg.n_layers // 2
         return {"layers": {"local": kv(half, min(capacity, cfg.window)),
                            "global": kv(half, capacity)}}
-    return {"layers": kv(cfg.n_layers, capacity if cfg.window is None
-                         else min(capacity, cfg.window))}
+    if cfg.attn_type == "mla":
+        stack = mla
+    else:
+        cap = capacity if cfg.window is None else min(capacity, cfg.window)
+        stack = functools.partial(kv, cap=cap)
+    nd = cfg.first_dense_layers
+    out = {"layers": stack(cfg.n_layers - nd)}
+    if nd:
+        out["dense_layers"] = stack(nd)
+    return out
 
 
 def forward(model: Transformer, batch: dict, *, mode: str = "train",
             caches: dict | None = None, pos: int | None = None):
     """Returns (logits, caches); caches are updated in place."""
-    return model(batch["tokens"], mode=mode, caches=caches, pos=pos)
+    return model(batch, mode=mode, caches=caches, pos=pos)

@@ -2,8 +2,10 @@
 kernel on strided views, its rejects, one launch per call, and the
 build (its key covers the shared headers); the GEMM at the JAX suite's
 shapes and the calibration's sizes and the SSD at the calibration's
-state dim 16; flash at MLA's latent head (Dk 288 / Dv 256, KV 1, H 40)
-in both dtypes, and its refusal of pairs it is not built for; the bf16
+state dim 16; flash at MLA's latent heads (Dk 288 / Dv 256, KV 1, H 40;
+Dk 576 / Dv 512 over two value slices, each slice held on its own) and at
+hubert-xlarge's non-causal encoder (D 80) in both dtypes, and its
+refusal of pairs it is not built for; the bf16
 tensor-core paths of flash (every head-dim tiling, GQA, ragged lengths,
 rows that are not 16-byte aligned), of
 the GEMM (K tails and unaligned rows), and of the chunked SSD and WKV-6
@@ -251,12 +253,58 @@ def test_flash_kernel_mla_latent_head(cuda, case, dtype):
     torch.testing.assert_close(got.float(), want.float(), **tol)
 
 
+# deepseek-v2's latent head: keys of kv_lora 512 + rope 64, values of
+# kv_lora 512 (two slices of 256, each a block of its own), scale
+# 1/sqrt(nope + rope) = 1/sqrt(192), causal, KV 1; the value a view of the
+# key's first 512 columns as the MLA layer passes it, or its own tensor.
+DEEPSEEK_CASES = {"view_s96": (96, True), "own_v_s130": (130, False)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", DEEPSEEK_CASES)
+def test_flash_kernel_deepseek_latent_head(cuda, case, dtype):
+    S, view = DEEPSEEK_CASES[case]
+    g = torch.Generator(device=cuda).manual_seed(8)
+    q = torch.randn(2, S, 8, 576, generator=g, device=cuda).to(dtype)
+    k = torch.randn(2, S, 1, 576, generator=g, device=cuda).to(dtype)
+    v = k[..., :512] if view else torch.randn(
+        2, S, 1, 512, generator=g, device=cuda).to(dtype)
+    kw = dict(causal=True, scale=192 ** -0.5)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, **kw)
+    assert flash_attention.launches == before + 1
+    assert got.shape == (2, S, 8, 512) and got.dtype == dtype
+    want = blockwise_attention(q, k, v, **kw)
+    tol = F32_TOL if dtype == torch.float32 else FLASH_BF16_TOL
+    for lo in (0, 256):     # each value slice on its own
+        torch.testing.assert_close(got[..., lo:lo + 256].float(),
+                                   want[..., lo:lo + 256].float(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_kernel_encoder_head_dim_80(cuda, dtype):
+    """hubert-xlarge's attention: not causal, H = KV, D 80, a ragged
+    S of 150 (the last 64-key tile holds 22)."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    q, k, v = (torch.randn(2, 150, 4, 80, generator=g, device=cuda).to(dtype)
+               for _ in range(3))
+    got = flash_attention(q, k, v, causal=False)
+    want = blockwise_attention(q, k, v, causal=False)
+    tol = F32_TOL if dtype == torch.float32 else FLASH_BF16_TOL
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
 @pytest.mark.cuda
 def test_flash_kernel_rejects_unbuilt_head_dims(cuda):
-    """Only Dk, Dv <= 256 and the pair rounding up to (288, 256) are
-    built: any other pair raises before a launch."""
+    """Only Dk, Dv <= 256 and the pairs rounding up to (288, 256) and
+    (576, 512) are built: any other pair raises before a launch."""
     before = flash_attention.launches
-    for dk, dv in ((300, 256), (288, 240), (256, 288)):
+    for dk, dv in ((300, 256), (288, 240), (256, 288), (576, 480),
+                   (600, 512), (512, 576)):
         q = torch.zeros(1, 8, 2, dk, device=cuda)
         v = torch.zeros(1, 8, 1, dv, device=cuda)
         with pytest.raises(ValueError, match="head dims"):

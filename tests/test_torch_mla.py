@@ -1,9 +1,10 @@
 """The port's MLA layer (``models/layers/mla.py``) against the JAX
 package's ``mla_apply`` on the same numpy inputs and weights
 (minicpm3-4b's reduced config: D 64, 4 heads, q_lora 32, kv_lora 16,
-nope/rope 8/4, v 8): train, prefill, and decode past the latent cache's
-capacity; and the flash wrapper's head-dim pairs (the kernel, at
-minicpm3-4b's Dk 288 / Dv 256, runs on the card only:
+nope/rope 8/4, v 8; deepseek-v2's: kv_lora 16, nope/rope 8/4, v 8):
+train, prefill, and decode past the latent cache's capacity; and the
+flash wrapper's head-dim pairs (the kernel, at minicpm3-4b's Dk 288 / Dv
+256 and deepseek-v2's Dk 576 / Dv 512, runs on the card only:
 tests/test_torch_kernels_cuda.py, chip_smoke.py)."""
 import jax
 import jax.numpy as jnp
@@ -21,11 +22,11 @@ from repro_torch.models.layers.mla import MLA
 B = 2
 
 
-def _layers(dtype, q_lora=None, seed=1):
+def _layers(dtype, q_lora=None, seed=1, arch="minicpm3-4b"):
     """JAX's MLA params, with random (nonzero) norm scales, and the
     port's MLA holding the same values (norms in f32)."""
-    jcfg = jax_get_config("minicpm3-4b", reduced=True).replace(dtype=dtype)
-    cfg = get_config("minicpm3-4b", reduced=True).replace(dtype=dtype)
+    jcfg = jax_get_config(arch, reduced=True).replace(dtype=dtype)
+    cfg = get_config(arch, reduced=True).replace(dtype=dtype)
     if q_lora is not None:
         jcfg, cfg = jcfg.replace(q_lora_rank=q_lora), cfg.replace(
             q_lora_rank=q_lora)
@@ -55,10 +56,10 @@ def _np(x):
     return np.asarray(jnp.asarray(x, jnp.float32))
 
 
-def _run(dtype, S, capacity, steps, q_lora=None):
+def _run(dtype, S, capacity, steps, q_lora=None, arch="minicpm3-4b"):
     """Outputs of a prefill over S tokens and ``steps`` decode steps,
     and the final latent caches, from both frameworks."""
-    (jcfg, params), (cfg, layer) = _layers(dtype, q_lora)
+    (jcfg, params), (cfg, layer) = _layers(dtype, q_lora, arch=arch)
     jd, td = jnp.dtype(dtype), getattr(torch, dtype)
     x = _x(S + steps)
     jc = init_mla_cache(jcfg, B, capacity, jd)
@@ -89,13 +90,15 @@ def _run(dtype, S, capacity, steps, q_lora=None):
     return want, got, jc, tc
 
 
-@pytest.mark.parametrize("q_lora", [None, 0], ids=["q_lora32", "full_q"])
-def test_f32_prefill_and_decode_past_capacity_match_jax(q_lora):
+@pytest.mark.parametrize("q_lora,arch", [
+    (None, "minicpm3-4b"), (0, "minicpm3-4b"), (None, "deepseek-v2-236b")],
+    ids=["q_lora32", "full_q", "deepseek_v2"])
+def test_f32_prefill_and_decode_past_capacity_match_jax(q_lora, arch):
     """A 12-token prefill into 16 latent slots, then 8 decode steps: the
     ring wraps at position 16 and decode keeps attending over the last
     16. f32: the same math, sums in another order → 1e-4 (JAX's own
     limit for the port's f32 logits); the caches too."""
-    want, got, jc, tc = _run("float32", 12, 16, 8, q_lora)
+    want, got, jc, tc = _run("float32", 12, 16, 8, q_lora, arch)
     for w, g in zip(want, got):
         np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-4)
     for n in ("ckv", "krope"):
@@ -138,11 +141,12 @@ def test_prefill_longer_than_the_cache_raises():
     (64, 64, True), (80, 64, True), (256, 256, True), (288, 256, True),
     (273, 241, True), (300, 256, False), (288, 240, False),
     (288, 288, False), (256, 288, False), (304, 256, False),
-    (0, 64, False)])
+    (0, 64, False), (576, 512, True), (570, 500, True), (576, 480, False),
+    (592, 512, False), (512, 576, False), (576, 256, False)])
 def test_flash_wrapper_head_dim_pairs(dk, dv, ok):
     """The wrapper's head-dim check, read from the CUDA source's one list
-    of its instances, takes Dk, Dv ≤ 256 and the pair that rounds up to
-    (288, 256). On CPU tensors the wrapper raises before any of it and
+    of its instances, takes Dk, Dv ≤ 256 and the pairs that round up to
+    (288, 256) and (576, 512). On CPU tensors the wrapper raises before any of it and
     falls back to nothing (the card refuses the other pairs:
     tests/test_torch_kernels_cuda.py)."""
     assert supported_dims(dk, dv) is ok

@@ -123,5 +123,8 @@ def test_convert_rejects_wrong_depth(f32):
 
 
 def test_unported_arch_names_its_slice():
-    with pytest.raises(NotImplementedError, match="slice 13"):
-        get_config("deepseek-v2-236b")
+    """Every arch of the JAX package is ported; a name outside them
+    raises, listing the known ones."""
+    assert get_config("deepseek-v2-236b").name == "deepseek-v2-236b"
+    with pytest.raises(KeyError, match="hubert-xlarge"):
+        get_config("llama-70b")

@@ -2,7 +2,9 @@
 package's ``moe_apply`` on the same numpy inputs and weights (mixtral-8x22b's
 reduced config: D 64, 4 experts, top 2, expert width 128): the dropless
 single group of decode and short prompts, the capacity path with padded
-groups that drops routes, the router's aux loss, and bf16 at the layer."""
+groups that drops routes, the router's aux loss, and bf16 at the layer;
+and deepseek-v2's (8 experts, top 2, expert width 32, one shared expert
+run densely beside the routed ones) through the same paths."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -15,17 +17,22 @@ from repro_torch.configs import get_config
 from repro_torch.models.layers.mlp import MoE
 
 
-def _layers(dtype):
-    """JAX's params (mixtral's bf16 param_dtype) and the port's MoE
-    holding the same values."""
-    jcfg = jax_get_config("mixtral-8x22b", reduced=True).replace(dtype=dtype)
-    cfg = get_config("mixtral-8x22b", reduced=True).replace(dtype=dtype)
+def _layers(dtype, arch="mixtral-8x22b"):
+    """JAX's params (mixtral's and deepseek-v2's bf16 param_dtype) and
+    the port's MoE holding the same values (the shared experts' MLP
+    under ``shared.``)."""
+    jcfg = jax_get_config(arch, reduced=True).replace(dtype=dtype)
+    cfg = get_config(arch, reduced=True).replace(dtype=dtype)
     params = init_moe(jax.random.PRNGKey(1), jcfg,
                       jnp.dtype(jcfg.param_dtype))
     td = getattr(torch, dtype)
     moe = MoE(cfg, td, "cpu")
+    flat = {}
+    for k, v in params.items():
+        for name, leaf in (v.items() if isinstance(v, dict) else [(None, v)]):
+            flat[k if name is None else f"{k}.{name}"] = leaf
     moe.load_state_dict({k: torch.from_numpy(np.array(v, np.float32)).to(
-        td) for k, v in params.items()})
+        td) for k, v in flat.items()})
     return (jcfg, params), (cfg, moe)
 
 
@@ -37,9 +44,9 @@ def _x(B, S, D, offset, seed=0):
             + offset * rng.standard_normal(D)).astype(np.float32)
 
 
-def _run(dtype, x):
+def _run(dtype, x, arch="mixtral-8x22b"):
     """(JAX out, JAX aux, port out, port aux, the port's routing)."""
-    (jcfg, params), (cfg, moe) = _layers(dtype)
+    (jcfg, params), (cfg, moe) = _layers(dtype, arch)
     jd, td = jnp.dtype(dtype), getattr(torch, dtype)
     jo, ja = jax.jit(lambda p, x: moe_apply(p, x, jcfg, dtype=jd))(
         params, jnp.asarray(x).astype(jd))
@@ -113,3 +120,26 @@ def test_bf16_layer_matches_jax(B, S):
     np.testing.assert_allclose(ta, ja, rtol=1e-5)
     if B * S > 256:
         assert int((ranks[:B * S] >= C).sum()) > 0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S", [(2, 16), (4, 1), (2, 300)],
+                         ids=["prefill", "decode", "capacity"])
+def test_shared_experts_match_jax(B, S, dtype):
+    """deepseek-v2's MoE: the shared expert (an MLP of width moe_d_ff ·
+    n_shared_experts on every token) added after the routed combine, as
+    JAX's ``moe_apply`` adds it; dropless and capacity paths (C =
+    int(1.25·256·2/8) = 80 a group of 256). f32 at 1e-5 as the routed
+    layer; bf16 at two bf16 steps of the largest |out|."""
+    x = _x(B, S, 64, 1.0, seed=6)
+    jo, ja, to, ta, (_, _, _, ranks, C) = _run(dtype, x, "deepseek-v2-236b")
+    if B * S > 256:
+        assert C == 80 and int((ranks[:B * S] >= C).sum()) > 0
+    if dtype == "float32":
+        np.testing.assert_allclose(to, jo, rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(ta, ja, rtol=1e-6)
+    else:
+        assert np.abs(to - jo).max() <= 2.0 ** -6 * np.abs(jo).max()
+    (_, params), (cfg, moe) = _layers("float32", "deepseek-v2-236b")
+    assert cfg.n_shared_experts == 1
+    assert tuple(moe.shared.w_up.shape) == (64, cfg.moe_d_ff)
