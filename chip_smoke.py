@@ -136,6 +136,24 @@ Phases, each printing its lines; any failure exits nonzero:
      AlexNet (one SGS and one waterfilling launch a generation),
      re-scored by the numpy flow evaluator. The TPU kernels' counts
      stay 0.
+ 11. train: smollm-360m at full width and depth (32 layers, d_model 960,
+     f32 masters, bf16 compute) through repro_torch.launch.train.main:
+     batch 8, seq 2048, 10 steps, a checkpoint every 5 into a temporary
+     directory under build/, then a second main with --restore auto for 4
+     steps. Each run's launches are counted: flash twice per layer and
+     step (the forward and the per-block remat's recompute; the kernels'
+     backward is autograd of the plain version and launches nothing).
+     Every loss finite, the loss falling over the 10 steps, the restart
+     resuming at step 10 with restores 0 and steps_run 4, as JAX's
+     driver reports them. The first step through the kernels against the
+     same step through the plain versions (loss, global grad norm, each
+     parameter's grad norm; the limits TRAIN_*_RTOL), and a planted fault
+     (the flash backward returning a zero dk) rejected by them; one warm
+     step under torch.profiler (busy share). Then rwkv6-3b (2 layers) and
+     zamba2-2.7b (one group of 6 Mamba-2 layers and its shared attention
+     block) at published widths, batch 4, seq 1024, 3 steps each through
+     the same train step and FaultTolerantLoop: WKV-6 twice a layer and
+     step, SSD twice a Mamba-2 layer and flash twice a group.
 Then one JSON line of kernel numbers, and as the last line
 {"ok": true, "device": {...}}. Without a card it exits 1 and prints no
 result. Imports nothing of JAX.
@@ -3665,6 +3683,260 @@ def phase_cosearch():
     return dict(main_launches)
 
 
+# Phase 11: the trainer. smollm-360m at full width and depth through
+# repro_torch.launch.train.main (batch 8, seq 2048, 10 steps, a
+# checkpoint every 5), then a restart with --restore auto for 4 steps;
+# rwkv6-3b and zamba2-2.7b at published widths and reduced depth (2 RWKV-6
+# layers; one Mamba-2 group and its shared attention block), 3 steps each.
+# With cfg.remat each block's forward runs again in the backward, so a
+# kernel launches twice per layer and step; the kernels' backward is the
+# plain version's autograd and launches nothing.
+TRAIN_SMOLLM = dict(batch=8, seq=2048, steps=10, ckpt_every=5, restart=4,
+                    warmup=2, lr=3e-3)
+TRAIN_CUT = {"rwkv6-3b": dict(n_layers=2), "zamba2-2.7b": dict(n_layers=6)}
+TRAIN_CUT_SHAPE = dict(batch=4, seq=1024, steps=3)
+# The first smollm step through the kernels against the same step through
+# the plain versions on the card, bf16 compute: the loss within
+# TRAIN_LOSS_RTOL, the global grad norm within TRAIN_GNORM_RTOL and every
+# parameter's grad norm within TRAIN_PARAM_RTOL (the kernels round in
+# other places than the plain versions, and a random-weight model
+# carries a change on through 32 layers). A planted fault, the flash
+# backward returning a zero dk, must break the last limit.
+TRAIN_LOSS_RTOL = 1e-2
+TRAIN_GNORM_RTOL = 5e-2
+TRAIN_PARAM_RTOL = 0.1
+
+
+def train_launches_per_step(cfg):
+    """Kernel launches of one training step, reckoned from the code: one
+    per kernel-running layer in the forward, and one more in the backward
+    when cfg.remat recomputes the block."""
+    per = 2 if cfg.remat else 1
+    if cfg.family == "ssm":
+        return {"wkv6": per * cfg.n_layers}
+    if cfg.family == "hybrid":
+        return {"ssm_scan": per * cfg.n_layers,
+                "flash_attention": per * cfg.n_layers
+                // cfg.hybrid_attn_period}
+    return {"flash_attention": per * cfg.n_layers}
+
+
+def check_launches(cfg, counts, steps, what):
+    """``steps``: the steps run, rejected ones included."""
+    want = {k: v * steps for k, v in train_launches_per_step(cfg).items()}
+    got = {k: v for k, v in counts.items() if v}
+    log("train", f"{what}: launches per step reckoned "
+        f"{train_launches_per_step(cfg)}, counted over {steps} steps "
+        f"{got}")
+    assert got == want, f"{what}: launched {got}, expected {want}"
+
+
+def grad_norms(grads):
+    return {n: g.float().norm().item() for n, g in grads.items()}
+
+
+def first_step_vs_plain(cfg, batch):
+    """The first smollm step's loss and gradients through the kernels
+    and through the plain versions (ops.attention's CPU route forced on
+    the card), and with a planted fault; the limits above."""
+    from repro_torch.kernels.flash_attention import blockwise, ops
+    from repro_torch.models import init_model
+    from repro_torch.train.train_step import grads_of, to_device
+
+    params = dict(init_model(cfg, seed=0, device="cuda",
+                             train=True).named_parameters())
+    batch = to_device(batch, "cuda")
+
+    def run():
+        g, m = grads_of(cfg, params, batch)
+        norms = grad_norms(g)
+        total = math.sqrt(sum(v * v for v in norms.values()))
+        return m["loss"].item(), total, norms
+
+    kernel = run()
+    kernel_attention = ops.attention
+    ops.attention = lambda q, k, v, **kw: blockwise.blockwise_attention(
+        q, k, v, **kw)
+    try:
+        plain = run()
+    finally:
+        ops.attention = kernel_attention
+    backward = ops.FlashAttention.backward
+
+    def zero_dk(ctx, grad_out):
+        dq, dk, *rest = backward(ctx, grad_out)
+        return (dq, torch.zeros_like(dk), *rest)
+    ops.FlashAttention.backward = staticmethod(zero_dk)
+    try:
+        fault = run()
+    finally:
+        ops.FlashAttention.backward = staticmethod(backward)
+
+    def worst(a, b):
+        rel = {n: abs(a[2][n] - b[2][n]) / max(b[2][n], 1e-30) for n in b[2]}
+        name = max(rel, key=rel.get)
+        return name, rel[name]
+    loss_rel = abs(kernel[0] - plain[0]) / abs(plain[0])
+    gnorm_rel = abs(kernel[1] - plain[1]) / plain[1]
+    name, param_rel = worst(kernel, plain)
+    fname, fault_rel = worst(fault, plain)
+    log("train", json.dumps({
+        "first_step_kernel_vs_plain": {
+            "loss": [kernel[0], plain[0]], "loss_rel": loss_rel,
+            "grad_norm": [kernel[1], plain[1]], "grad_norm_rel": gnorm_rel,
+            "worst_param": name, "worst_param_rel": param_rel,
+            "limits": [TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL, TRAIN_PARAM_RTOL]},
+        "planted_zero_dk": {"worst_param": fname,
+                            "worst_param_rel": fault_rel}}))
+    assert loss_rel <= TRAIN_LOSS_RTOL, loss_rel
+    assert gnorm_rel <= TRAIN_GNORM_RTOL, gnorm_rel
+    assert param_rel <= TRAIN_PARAM_RTOL, (name, param_rel)
+    assert fault_rel > TRAIN_PARAM_RTOL, ("planted fault not rejected",
+                                          fname, fault_rel)
+    return kernel[0]
+
+
+def phase_train():
+    """smollm-360m trained and restarted through launch.train.main (the
+    launches of its runs counted and checked), the first step held to the
+    plain versions, one step profiled; then the cut rwkv6-3b and
+    zamba2-2.7b, 3 steps each through the same train step and loop."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import make_pipeline
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import init_model
+    from repro_torch.runtime import FaultTolerantLoop
+    from repro_torch.train import adamw, cosine_schedule
+    from repro_torch.train.train_step import (init_train_state,
+                                              make_train_step)
+
+    t_phase = time.perf_counter()
+    total = collections.Counter()
+    cfg = get_config("smollm-360m")
+    tr = TRAIN_SMOLLM
+    (ROOT / "build").mkdir(exist_ok=True)
+    ckdir = tempfile.mkdtemp(prefix="train-ckpt-", dir=ROOT / "build")
+    args = ["--arch", cfg.name, "--batch", str(tr["batch"]), "--seq",
+            str(tr["seq"]), "--lr", str(tr["lr"]), "--warmup",
+            str(tr["warmup"]), "--ckpt", ckdir, "--log-every", "1"]
+    try:
+        reports = []
+        for run, extra in (("first run", ["--steps", str(tr["steps"]),
+                                          "--ckpt-every",
+                                          str(tr["ckpt_every"])]),
+                           ("restart", ["--steps", str(tr["restart"]),
+                                        "--restore", "auto"])):
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                report = train_mod.main(args + extra)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = launch_counts()
+            peak = torch.cuda.max_memory_allocated()
+            for line in out.getvalue().splitlines():
+                log("train", line)
+            check_launches(cfg, counts, report.steps_run + report.bad_steps,
+                           f"{cfg.name} {run}")
+            total.update(counts)
+            steady = report.step_s[1:]
+            step_ms = 1e3 * statistics.median(steady)
+            row = {"arch": cfg.name, "run": run, "layers": cfg.n_layers,
+                   "d_model": cfg.d_model, "batch": tr["batch"],
+                   "seq": tr["seq"], "steps_run": report.steps_run,
+                   "bad_steps": report.bad_steps,
+                   "restores": report.restores,
+                   "stragglers": report.stragglers,
+                   "losses": report.losses,
+                   "step_ms": [1e3 * s for s in report.step_s],
+                   "steady_step_ms": step_ms,
+                   "tokens_per_s": tr["batch"] * tr["seq"] / step_ms * 1e3,
+                   "wall_s": wall, "max_memory_allocated_bytes": peak,
+                   "checkpoints": Checkpointer(ckdir).steps(),
+                   "card": CARD}
+            log("train", json.dumps(row))
+            assert all(math.isfinite(x) for x in report.losses), row
+            assert report.bad_steps == 0 and report.restores == 0, row
+            reports.append((report, out.getvalue()))
+        (first, _), (again, again_out) = reports
+        assert first.steps_run == tr["steps"]
+        assert first.losses[-1] < first.losses[0], first.losses
+        assert f"[train] restored step {tr['steps']}" in again_out
+        assert again.steps_run == tr["restart"]
+        assert Checkpointer(ckdir).latest() == tr["steps"] + tr["restart"]
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+
+    pipe = make_pipeline(cfg, dict(seq_len=tr["seq"],
+                                   global_batch=tr["batch"]), seed=0)
+    first_loss = first_step_vs_plain(cfg, pipe.at(0))
+    rel = abs(first_loss - first.losses[0]) / abs(first.losses[0])
+    log("train", f"first step's loss by grads_of {first_loss} vs the "
+        f"driver's {first.losses[0]} (rel {rel:.2e})")
+    assert rel <= TRAIN_LOSS_RTOL
+
+    # One warm step profiled: the device's busy share.
+    opt = adamw(lr=cosine_schedule(tr["lr"], tr["warmup"], tr["steps"]))
+    step = make_train_step(cfg, opt)
+    state = init_train_state(dict(init_model(
+        cfg, seed=0, device="cuda", train=True).named_parameters()), opt)
+    state, _ = step(state, pipe.at(0))
+    batch = pipe.at(1)
+    prof = device_breakdown(lambda: step(state, batch))
+    log("train", f"{cfg.name} one warm step profiled " + json.dumps(prof))
+    del state, step
+    torch.cuda.empty_cache()
+
+    for arch, cut in TRAIN_CUT.items():
+        cfg = get_config(arch).replace(**cut)
+        sh = TRAIN_CUT_SHAPE
+        opt = adamw(lr=cosine_schedule(tr["lr"], 1, sh["steps"]))
+        model = init_model(cfg, seed=0, device="cuda", train=True)
+        n_params = sum(p.numel() for p in model.parameters())
+        state = init_train_state(dict(model.named_parameters()), opt)
+        del model
+        pipe = make_pipeline(cfg, dict(seq_len=sh["seq"],
+                                       global_batch=sh["batch"]), seed=0)
+        loop = FaultTolerantLoop(make_train_step(cfg, opt), pipe,
+                                 log=lambda m: log("train", m))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        state, report = loop.run(state, 0, sh["steps"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        check_launches(cfg, counts, report.steps_run + report.bad_steps,
+                       arch)
+        total.update(counts)
+        step_ms = 1e3 * statistics.median(report.step_s[1:])
+        row = {"arch": arch, "layers": cfg.n_layers, "d_model": cfg.d_model,
+               "parameters": n_params, **sh,
+               "steps_run": report.steps_run, "losses": report.losses,
+               "step_ms": [1e3 * s for s in report.step_s],
+               "steady_step_ms": step_ms,
+               "tokens_per_s": sh["batch"] * sh["seq"] / step_ms * 1e3,
+               "wall_s": wall,
+               "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+               "card": CARD}
+        log("train", json.dumps(row))
+        assert report.steps_run == sh["steps"], row
+        assert all(math.isfinite(x) for x in report.losses), row
+        del state, loop
+        torch.cuda.empty_cache()
+    log("train", f"phase 11 in {time.perf_counter() - t_phase:.1f}s")
+    return total
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -3689,9 +3961,10 @@ def main():
     counts, _ = phase_multitenant()
     launches.update(counts)
     launches.update(phase_cosearch())
-    log("cosearch", f"launches over the calibration pass, the serve "
-        f"paths, the encoder, the pipelining sweep, the flow legs, phase 9 "
-        f"and phase 10: {dict(launches)}")
+    launches.update(phase_train())
+    log("train", f"launches over the calibration pass, the serve "
+        f"paths, the encoder, the pipelining sweep, the flow legs, phase 9, "
+        f"phase 10 and the trainer: {dict(launches)}")
     kernels = [{
         "name": name, "route": "cuda", "source": src, "replaces": tpu,
         "launches": launches[name],

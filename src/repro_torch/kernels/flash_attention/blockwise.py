@@ -12,6 +12,8 @@ import math
 
 import torch
 
+from .. import remat
+
 NEG_INF = -2.0e38
 
 
@@ -38,9 +40,31 @@ def blockwise_attention(
     kf, vf = k.float(), v.float()
     out = torch.empty(B, Sq, H, Dv, dtype=q.dtype, device=q.device)
 
+    def kv_step(acc, m, l, qblk, kblk, vblk, qpos, k0):
+        kpos = torch.arange(k0, k0 + kblk.shape[1],
+                            device=q.device)[None, :]
+        s = torch.einsum("bqkgd,bskd->bkgqs", qblk, kblk) * scale
+        if softcap is not None:
+            s = softcap * torch.tanh(s / softcap)
+        msk = torch.ones(qblk.shape[1], kblk.shape[1], dtype=torch.bool,
+                         device=q.device)
+        if causal:
+            msk &= kpos <= qpos
+        if window is not None:
+            msk &= kpos > qpos - window
+        s = torch.where(msk, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bkgqs,bskd->bkgqd", p, vblk)
+        return acc, m_new, l
+
     # The last chunk of each axis is ragged instead of padded: a padded
     # key is masked to NEG_INF and adds exp(NEG_INF - m) = 0, so both
-    # give the same sums.
+    # give the same sums. Under autograd each KV step is rematerialised,
+    # as in the JAX package.
     for q0 in range(0, Sq, q_chunk):
         qblk = q[:, q0:q0 + q_chunk].float()
         c = qblk.shape[1]
@@ -50,26 +74,9 @@ def blockwise_attention(
         m = torch.full((B, KV, G, c), NEG_INF, device=q.device)
         l = torch.zeros(B, KV, G, c, device=q.device)
         for k0 in range(0, Skv, kv_chunk):
-            kblk, vblk = kf[:, k0:k0 + kv_chunk], vf[:, k0:k0 + kv_chunk]
-            kpos = torch.arange(k0, k0 + kblk.shape[1],
-                                device=q.device)[None, :]
-            s = torch.einsum("bqkgd,bskd->bkgqs", qblk, kblk) * scale
-            if softcap is not None:
-                s = softcap * torch.tanh(s / softcap)
-            msk = torch.ones(c, kblk.shape[1], dtype=torch.bool,
-                             device=q.device)
-            if causal:
-                msk &= kpos <= qpos
-            if window is not None:
-                msk &= kpos > qpos - window
-            s = torch.where(msk, s, NEG_INF)
-            m_new = torch.maximum(m, s.amax(dim=-1))
-            p = torch.exp(s - m_new[..., None])
-            alpha = torch.exp(m - m_new)
-            l = l * alpha + p.sum(dim=-1)
-            acc = acc * alpha[..., None] + torch.einsum(
-                "bkgqs,bskd->bkgqd", p, vblk)
-            m = m_new
+            acc, m, l = remat(kv_step, acc, m, l, qblk,
+                              kf[:, k0:k0 + kv_chunk],
+                              vf[:, k0:k0 + kv_chunk], qpos, k0)
         o = acc / torch.clamp_min(l[..., None], 1e-37)
         # (B, KV, G, c, Dv) -> (B, c, H, Dv)
         out[:, q0:q0 + c] = o.permute(0, 3, 1, 2, 4).reshape(

@@ -9,6 +9,9 @@ blocks of their own). The wrapper checks what
 the kernel takes and raises on anything else, allocates the output, and
 launches on PyTorch's current stream without synchronising.
 ``flash_attention.launches`` counts the launches.
+It writes its output itself, so autograd cannot see through it: it
+raises on inputs that require grad under grad mode, and training goes
+through the ``autograd.Function`` in ``ops``.
 """
 from __future__ import annotations
 
@@ -19,7 +22,7 @@ import re
 
 import torch
 
-from .. import _build
+from .. import _build, refuse_grad
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -107,6 +110,7 @@ def flash_attention(
     softcap: float | None = None,
     scale: float | None = None,
 ) -> torch.Tensor:
+    refuse_grad("flash_attention", q, k, v)
     _check(q, k, v, window, softcap)
     B, Sq, H, Dk = q.shape
     _, Skv, KV, Dv = v.shape

@@ -11,6 +11,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from .. import remat
+
 
 def wkv6_chunked(r, k, v, w, u, s0=None, chunk: int = 32):
     """r/k/v/w (B,S,H,K), u (H,K), s0 (B,H,K,K) f32 or None (zeros) →
@@ -33,16 +35,18 @@ def wkv6_chunked(r, k, v, w, u, s0=None, chunk: int = 32):
     strict = torch.tril(torch.ones((Lc, Lc), dtype=torch.bool,
                                    device=r.device), -1)[None, :, :, None,
                                                          None]
-    ys = []
-    for c in range(nc):
-        rk, kk, vk, lwk = rc[:, c], kc[:, c], vc[:, c], lwc[:, c]
+
+    def chunk_step(s, rk, kk, vk, lwk):
         cum = torch.cumsum(lwk, dim=1)                       # (B,Lc,H,K)
         # S_{i-1} sees decay Π_{p=j+1..i-1} w_p = exp(cum_{i-1} − cum_j)
         cum_im1 = F.pad(cum, (0, 0, 0, 0, 1, 0))[:, :-1]
         diff = cum_im1[:, :, None] - cum[:, None]            # (B,i,j,H,K)
-        # For j ≥ i the exponent is positive and may overflow: mask it
-        # before it meets anything else (inf · 0 is NaN).
-        decay = torch.where(strict, torch.exp(diff), 0.0)
+        # For j ≥ i the exponent is positive and may overflow: it is set
+        # to −inf before the exp, so neither the value nor the gradient
+        # meets an inf (where(mask, exp(diff), 0) is right forward, but
+        # its backward multiplies the masked zeros by exp(diff) = inf:
+        # NaN, as the JAX package's does).
+        decay = torch.exp(diff.masked_fill(~strict, float("-inf")))
         A = torch.einsum("bihk,bijhk,bjhk->bijh", rk, decay, kk)
         diag = torch.einsum("bihk,hk,bihk->bih", rk, u32, kk)
         y_intra = (torch.einsum("bijh,bjhv->bihv", A, vk)
@@ -51,8 +55,14 @@ def wkv6_chunked(r, k, v, w, u, s0=None, chunk: int = 32):
                                s)
         decay_end = torch.exp(cum[:, -1:] - cum)             # (B,Lc,H,K)
         kv = torch.einsum("bjhk,bjhv->bhkv", kk * decay_end, vk)
-        s = torch.exp(cum[:, -1])[..., None] * s + kv
-        ys.append(y_intra + y_inter)
+        return torch.exp(cum[:, -1])[..., None] * s + kv, y_intra + y_inter
+
+    # Under autograd each chunk is rematerialised, as in the JAX package:
+    # its backward recomputes the (i, j, channel) decay tensor.
+    ys = []
+    for c in range(nc):
+        s, y = remat(chunk_step, s, rc[:, c], kc[:, c], vc[:, c], lwc[:, c])
+        ys.append(y)
     y = torch.cat(ys, dim=1)[:, :S]
     return y.to(r.dtype), s
 

@@ -6,6 +6,9 @@ RWKV-6 layer calls: an initial state in, the final state out.
 The wrapper checks what the kernel takes and raises on anything else,
 allocates y and the final state, and launches on PyTorch's current
 stream without synchronising. ``wkv6.launches`` counts the launches.
+It writes its output itself, so autograd cannot see through it: it
+raises on inputs that require grad under grad mode, and training goes
+through the ``autograd.Function`` in ``ops``.
 """
 from __future__ import annotations
 
@@ -14,7 +17,7 @@ import functools
 
 import torch
 
-from .. import _build
+from .. import _build, refuse_grad
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64)
@@ -76,6 +79,7 @@ def _check(r, k, v, w, u, s0):
 def wkv6(r, k, v, w, u, s0=None):
     """r/k/v/w (B,S,H,K), u (H,K) f32, s0 (B,H,K,K) f32 or None (zeros)
     → (y (B,S,H,K) in r's dtype, final state (B,H,K,K) f32)."""
+    refuse_grad("wkv6", r, k, v, w, u, s0)
     _check(r, k, v, w, u, s0)
     B, S, H, K = r.shape
     fn = _fn()

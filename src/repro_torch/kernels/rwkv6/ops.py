@@ -1,12 +1,49 @@
 """Public WKV-6 op: the CUDA kernel for CUDA tensors, the plain chunked
 version for CPU tensors. There is no fallback: a kernel that does not
 build or launch raises. ``wkv6_ref`` is the sequential oracle for
-tests."""
+tests.
+
+On CUDA tensors the kernel runs inside ``WKV6``, an
+``autograd.Function``: its forward is the kernel, its backward recomputes
+the plain chunked version on the saved inputs and differentiates it (the
+JAX package's training path differentiates the same chunked function,
+rematerialised per chunk). On CPU tensors autograd differentiates the
+plain version directly.
+"""
 from __future__ import annotations
 
+import torch
+
+from .. import plain_backward
+from . import kernel
 from .chunked import wkv6_chunked
-from .kernel import wkv6 as wkv6_kernel
 from .ref import wkv6_ref  # noqa: F401
+
+
+class WKV6(torch.autograd.Function):
+    """forward: ``kernel.wkv6`` → (y, final state); backward: autograd of
+    ``wkv6_chunked`` at the same chunk, recomputed on the saved r, k, v,
+    w, u, s0, for every input that needs a gradient. The final state's
+    incoming gradient may be None (unused) or a tensor."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, s0, chunk):
+        ctx.save_for_backward(r, k, v, w, u, s0)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        return kernel.wkv6(r, k, v, w, u, s0=s0)
+
+    @staticmethod
+    def backward(ctx, dy, ds):
+        def plain(r, k, v, w, u, s0):
+            return wkv6_chunked(r, k, v, w, u, s0=s0, chunk=ctx.chunk)
+        return plain_backward(plain, ctx, (dy, ds), 1)
+
+
+def kernel_wkv6(r, k, v, w, u, s0=None, chunk: int = 32):
+    """The kernel's route, differentiable: forward by the CUDA kernel,
+    backward by the plain version (``chunk`` tiles its recompute)."""
+    return WKV6.apply(r, k, v, w, u, s0, chunk)
 
 
 def wkv6(r, k, v, w, u, s0=None, chunk: int = 32):
@@ -16,4 +53,4 @@ def wkv6(r, k, v, w, u, s0=None, chunk: int = 32):
     its f32 path walks time one step at a time."""
     if r.device.type == "cpu":
         return wkv6_chunked(r, k, v, w, u, s0=s0, chunk=chunk)
-    return wkv6_kernel(r, k, v, w, u, s0=s0)
+    return kernel_wkv6(r, k, v, w, u, s0=s0, chunk=chunk)

@@ -12,6 +12,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from .. import remat
+
 
 def ssm_scan_chunked(x, dt, a, Bmat, Cmat, D, h0=None, chunk: int = 256):
     """x (B,S,H,P), dt (B,S,H), a (H,), Bmat/Cmat (B,S,G,N), D (H,), h0
@@ -39,15 +41,15 @@ def ssm_scan_chunked(x, dt, a, Bmat, Cmat, D, h0=None, chunk: int = 256):
          if h0 is None else h0.float())
     tri = torch.tril(torch.ones((Lc, Lc), dtype=torch.bool,
                                 device=x.device))[None, :, :, None]
-    ys = []
-    for c in range(nc):
-        xk, dk, Bk, Ck = xc[:, c], dtc[:, c], Bc[:, c], Cc[:, c]
+
+    def chunk_step(h, xk, dk, Bk, Ck):
         cum = torch.cumsum(dk * a32, dim=1)                  # (B,Lc,H) ≤ 0
         # L[i, j] = exp(cum_i − cum_j) for i ≥ j. For j > i the exponent
-        # is positive and may overflow: mask it before it meets anything
-        # else (inf · 0 is NaN).
+        # is positive and may overflow: it is set to −inf before the exp,
+        # so neither the value nor the gradient meets an inf (the JAX
+        # package's where(tri, exp(diff), 0) gives NaN gradients there).
         diff = cum[:, :, None, :] - cum[:, None, :, :]       # (B,i,j,H)
-        Lmat = torch.where(tri, torch.exp(diff), 0.0)
+        Lmat = torch.exp(diff.masked_fill(~tri, float("-inf")))
         CB = torch.einsum("bihn,bjhn->bijh", Ck, Bk)
         W = CB * Lmat * dk[:, None, :, :]                    # weight on x_j
         y_intra = torch.einsum("bijh,bjhp->bihp", W, xk)
@@ -57,7 +59,14 @@ def ssm_scan_chunked(x, dt, a, Bmat, Cmat, D, h0=None, chunk: int = 256):
         dB = (dk * decay_to_end)[..., None] * Bk             # (B,Lc,H,N)
         h = (h * torch.exp(cum[:, -1, :])[..., None, None]
              + torch.einsum("bjhn,bjhp->bhpn", dB, xk))
-        ys.append(y_intra + y_inter)
+        return h, y_intra + y_inter
+
+    # Under autograd each chunk is rematerialised, as in the JAX package:
+    # its backward recomputes the intra-chunk decay and attention tensors.
+    ys = []
+    for c in range(nc):
+        h, y = remat(chunk_step, h, xc[:, c], dtc[:, c], Bc[:, c], Cc[:, c])
+        ys.append(y)
     y = torch.cat(ys, dim=1)[:, :S] + x32 * D.float()[None, None, :, None]
     return y.to(x.dtype), h
 

@@ -9,6 +9,9 @@ C may be strided views, such as the pieces of a split convolution
 output. The wrapper checks what the kernel takes and raises on anything
 else, allocates y and the final state, and launches on PyTorch's current
 stream without synchronising. ``ssm_scan.launches`` counts the launches.
+It writes its output itself, so autograd cannot see through it: it
+raises on inputs that require grad under grad mode, and training goes
+through the ``autograd.Function`` in ``ops``.
 """
 from __future__ import annotations
 
@@ -17,7 +20,7 @@ import functools
 
 import torch
 
-from .. import _build
+from .. import _build, refuse_grad
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 STATE_DIMS = (8, 16, 64)     # the JAX suite, the calibration, zamba2-2.7b
@@ -96,6 +99,7 @@ def ssm_scan(x, dt, a, Bmat, Cmat, D, h0=None):
     """x (B,S,H,P), dt (B,S,H) f32, a (H,) f32, Bmat/Cmat (B,S,G,N) in x's
     dtype, D (H,) f32, h0 (B,H,P,N) f32 or None (zeros) → (y (B,S,H,P) in
     x's dtype, final state (B,H,P,N) f32)."""
+    refuse_grad("ssm_scan", x, dt, a, Bmat, Cmat, D, h0)
     _check(x, dt, a, Bmat, Cmat, D, h0)
     Bsz, S, H, P = x.shape
     G, N = Bmat.shape[2], Bmat.shape[3]

@@ -132,17 +132,20 @@ def _leaf(tree, path):
     return tree
 
 
-def from_jax_params(cfg: ModelConfig, params: dict) -> dict:
+def from_jax_params(cfg: ModelConfig, params: dict, dtype=None) -> dict:
     """Unstack the layer axis and name each leaf as the port's
     ``Transformer`` does. Matmul weights, mixes and the embedding are
     cast once to ``cfg.dtype`` (the JAX package casts them at every use,
     which gives the same values); the leaves in ``_F32`` stay f32. Load
-    the result with ``model.load_state_dict``."""
-    dtype = getattr(torch, cfg.dtype)
+    the result with ``model.load_state_dict``. ``dtype`` given: every
+    leaf in it instead (a training model's masters, Adam's moments)."""
+    compute = getattr(torch, cfg.dtype)
 
     def tensor(name, a):
         t = torch.from_numpy(np.asarray(a, dtype=np.float32).copy())
-        return t if name in _F32 else t.to(dtype)
+        if dtype is not None:
+            return t.to(dtype)
+        return t if name in _F32 else t.to(compute)
 
     state = {"embed": tensor("embed", params["embed"]),
              "final_norm": tensor("final_norm", params["final_norm"])}
@@ -180,3 +183,20 @@ def from_jax_params(cfg: ModelConfig, params: dict) -> dict:
         for path, name in _SHARED_LEAVES.items():
             state[name] = tensor(name, _leaf(params["shared_attn"], path))
     return state
+
+
+def train_state_from_jax(cfg: ModelConfig, state: dict) -> dict:
+    """A JAX ``TrainState`` with numpy leaves ({"params", "opt": {"m",
+    "v", "count"}, "step"}) → the port's (``train.train_step``): params
+    through ``from_jax_params`` kept in ``cfg.param_dtype``; m and v,
+    which have the params' tree, through the same mapping in f32;
+    ``count`` and ``step`` as they are (0-d int32), all on the CPU."""
+    def counter(a):
+        return torch.from_numpy(np.asarray(a, dtype=np.int32).copy())
+    opt = state["opt"]
+    return {"params": from_jax_params(cfg, state["params"],
+                                      getattr(torch, cfg.param_dtype)),
+            "opt": {"m": from_jax_params(cfg, opt["m"], torch.float32),
+                    "v": from_jax_params(cfg, opt["v"], torch.float32),
+                    "count": counter(opt["count"])},
+            "step": counter(state["step"])}

@@ -10,14 +10,23 @@ every ``hybrid_attn_period`` of them).
 
 ``init_model(cfg, seed, device) → Transformer`` (an ``nn.Module`` with a
 ``ModuleList`` of blocks) and ``forward(model, batch, mode, caches, pos)
-→ (logits, caches)``; ``embed_inputs`` turns the batch ({"tokens"},
+→ (logits, caches)``; ``forward(..., output="hidden")`` returns
+((hidden, head), the summed MoE aux loss) for the fused training loss
+instead. ``embed_inputs`` turns the batch ({"tokens"},
 with "patches" for the vision stub; {"frames"}, with an optional
-"mask", for the audio stub) into the first hidden state. Matmul weights
-and the embedding are stored in the compute dtype ``cfg.dtype``: the
-JAX package keeps them in ``param_dtype`` and casts them at every use,
-which gives the same values. Norm scales, and the RWKV and Mamba-2
-weights the JAX layers compute with in f32, stay f32. ``qk_norm``, which
-no config sets, raises ``NotImplementedError`` until a caller needs it.
+"mask", for the audio stub) into the first hidden state.
+
+A model built for serving stores its matmul weights and the embedding in
+the compute dtype ``cfg.dtype``, frozen: the JAX package keeps them in
+``param_dtype`` and casts them at every use, which gives the same values.
+A model built for training (``init_model(..., train=True)``) stores them
+in ``param_dtype`` (f32 masters, which AdamW updates, as in JAX) and
+casts at use; its weights require grad. Norm scales, and the RWKV and
+Mamba-2 weights the JAX layers compute with in f32, stay f32 in both.
+In ``mode="train"`` with ``cfg.remat`` each block is rematerialised
+under autograd (``kernels.remat``), as JAX's scan body is.
+``qk_norm``, which no config sets, raises ``NotImplementedError`` until
+a caller needs it.
 """
 from __future__ import annotations
 
@@ -27,6 +36,7 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
+from ..kernels import remat
 from .config import ModelConfig
 from .layers.attention import Attention
 from .layers.common import dense_init, rms_norm, softcap, weight
@@ -120,13 +130,14 @@ class Block(nn.Module):
             a = rms_norm(a, self.ln1b, cfg.norm_eps, plus_one=True)
         x = x + a
         h = rms_norm(x, self.ln2, cfg.norm_eps, plus_one=True)
+        aux = None
         if self.is_moe:
-            m, _ = self.moe(h, dtype)       # the aux loss is for training
+            m, aux = self.moe(h, dtype)
         else:
             m = self.mlp(h, cfg.act, dtype)
         if cfg.local_global_period:
             m = rms_norm(m, self.ln2b, cfg.norm_eps, plus_one=True)
-        return x + m, cache
+        return x + m, cache, aux
 
 
 class RWKVBlock(nn.Module):
@@ -196,60 +207,73 @@ class SharedAttention(nn.Module):
 
 class Transformer(nn.Module):
     """Parameters are allocated uninitialised; ``init_model`` draws them,
-    ``load_state_dict(convert.from_jax_params(...))`` copies them."""
+    ``load_state_dict(convert.from_jax_params(...))`` copies them.
+    ``train=True`` stores the weights in ``cfg.param_dtype`` instead of
+    the compute dtype ``cfg.dtype``."""
 
-    def __init__(self, cfg: ModelConfig, device):
+    def __init__(self, cfg: ModelConfig, device, train: bool = False):
         super().__init__()
         _check_supported(cfg)
         self.cfg = cfg
         self.dtype = getattr(torch, cfg.dtype)
+        wdt = getattr(torch, cfg.param_dtype) if train else self.dtype
         Vp, D = cfg.padded_vocab, cfg.d_model
-        self.embed = weight(Vp, D, dtype=self.dtype, device=device)
+        self.embed = weight(Vp, D, dtype=wdt, device=device)
         self.final_norm = _f32_param(D, device)
         if cfg.frontend == "vision_stub":
-            self.patch_proj = weight(cfg.frontend_dim, D, dtype=self.dtype,
+            self.patch_proj = weight(cfg.frontend_dim, D, dtype=wdt,
                                      device=device)
         if cfg.frontend == "audio_stub":
-            self.frame_proj = weight(cfg.frontend_dim, D, dtype=self.dtype,
+            self.frame_proj = weight(cfg.frontend_dim, D, dtype=wdt,
                                      device=device)
-            self.mask_emb = weight(D, dtype=self.dtype, device=device)
+            self.mask_emb = weight(D, dtype=wdt, device=device)
         if not cfg.tie_embeddings:
-            self.lm_head = weight(D, Vp, dtype=self.dtype, device=device)
+            self.lm_head = weight(D, Vp, dtype=wdt, device=device)
         if cfg.family in ("ssm", "hybrid"):
             block = {"ssm": RWKVBlock, "hybrid": MambaBlock}[cfg.family]
-            blocks = (block(cfg, self.dtype, device)
+            blocks = (block(cfg, wdt, device)
                       for _ in range(cfg.n_layers))
         else:
             nd = cfg.first_dense_layers
-            blocks = (Block(cfg, self.dtype, device, _layer_window(cfg, i),
+            blocks = (Block(cfg, wdt, device, _layer_window(cfg, i),
                             moe=cfg.family == "moe" and i >= nd)
                       for i in range(cfg.n_layers))
         self.blocks = nn.ModuleList(blocks)
         if cfg.family == "hybrid":
-            self.shared = SharedAttention(cfg, self.dtype, device)
+            self.shared = SharedAttention(cfg, wdt, device)
 
-    def forward(self, batch, *, mode="train", caches=None, pos=None):
+    def forward(self, batch, *, mode="train", caches=None, pos=None,
+                output="logits"):
         """batch ({"tokens" (B, S)}, with "patches" (B, Np, frontend_dim)
         for the vision stub; {"frames" (B, S, frontend_dim)}, with an
         optional bool "mask" (B, S), for the audio stub) → (logits (B,
-        S [+ Np], padded_vocab), caches). An encoder runs in
-        ``mode="train"`` only: the JAX package's prefill of an encoder,
-        which has no cache, fails in ``attn_apply``, and an encoder has
-        no decode."""
+        S [+ Np], padded_vocab), caches); with ``output="hidden"``
+        ((hidden (B, S [+ Np], D), head (D, padded_vocab)), aux), both in
+        the compute dtype, aux the MoE blocks' summed aux loss (f32, 0
+        without MoE), as JAX's ``forward(..., output="hidden")``. An
+        encoder runs in ``mode="train"`` only: the JAX package's prefill
+        of an encoder, which has no cache, fails in ``attn_apply``, and an
+        encoder has no decode."""
         cfg, dtype = self.cfg, self.dtype
         if cfg.is_encoder and mode != "train":
             raise ValueError(
                 f"{cfg.name} is an encoder: it runs through forward(mode="
                 f"'train') only (no cache, no decode), not mode={mode!r}")
+        if output not in ("logits", "hidden"):
+            raise ValueError(f"output must be 'logits' or 'hidden', got "
+                             f"{output!r}")
         x, positions, _ = embed_inputs(self, batch, mode, pos)
+        aux = torch.zeros((), device=x.device)
         if cfg.family == "ssm":
             x = self._rwkv_blocks(x, caches, mode)
         elif cfg.family == "hybrid":
             x = self._hybrid_blocks(x, positions, caches, mode, pos)
         else:
-            x = self._attention_blocks(x, positions, caches, mode, pos)
+            x, aux = self._attention_blocks(x, positions, caches, mode, pos)
         x = rms_norm(x, self.final_norm, cfg.norm_eps, plus_one=True)
         head = self.embed.T if cfg.tie_embeddings else self.lm_head
+        if output == "hidden":
+            return (x.to(dtype), head.to(dtype)), aux
         logits = softcap(x.to(dtype) @ head.to(dtype),
                          cfg.final_logit_softcap)
         if cfg.padded_vocab != cfg.vocab_size:   # mask vocab padding
@@ -258,12 +282,24 @@ class Transformer(nn.Module):
             logits = logits.masked_fill(pad, -1e9)
         return logits, caches
 
+    def _run(self, mode, fn, *args):
+        """``fn(*args)``, one block: rematerialised under autograd in
+        ``mode="train"`` with ``cfg.remat``."""
+        if self.cfg.remat and mode == "train":
+            return remat(fn, *args)
+        return fn(*args)
+
     def _attention_blocks(self, x, positions, caches, mode, pos):
+        """→ (x, the MoE blocks' summed aux loss)."""
+        aux = torch.zeros((), device=x.device)
         for i, blk in enumerate(self.blocks):
             cache = _layer_cache(self.cfg, caches, i) if caches else None
-            x, _ = blk(x, positions=positions, cache=cache, pos=pos,
-                       mode=mode, dtype=self.dtype)
-        return x
+            x, _, a = self._run(mode, functools.partial(
+                blk, positions=positions, cache=cache, pos=pos, mode=mode,
+                dtype=self.dtype), x)
+            if a is not None:
+                aux = aux + a
+        return x, aux
 
     def _rwkv_blocks(self, x, caches, mode):
         """Each block reads its state from the stacked caches and its new
@@ -271,7 +307,8 @@ class Transformer(nn.Module):
         for i, blk in enumerate(self.blocks):
             state = None if caches is None else {
                 n: caches["layers"][n][i] for n in _RWKV_STATE}
-            x, new = blk(x, state=state, mode=mode, dtype=self.dtype)
+            x, new = self._run(mode, functools.partial(
+                blk, state=state, mode=mode, dtype=self.dtype), x)
             if state is not None and new is not None:
                 for n in _RWKV_STATE:
                     state[n].copy_(new[n])
@@ -286,7 +323,8 @@ class Transformer(nn.Module):
         for i, blk in enumerate(self.blocks):
             state = None if caches is None else {
                 n: caches["mamba"][n][i] for n in _MAMBA_STATE}
-            x, new = blk(x, state=state, mode=mode, dtype=self.dtype)
+            x, new = self._run(mode, functools.partial(
+                blk, state=state, mode=mode, dtype=self.dtype), x)
             if state is not None and new is not None:
                 for n in _MAMBA_STATE:
                     state[n].copy_(new[n])
@@ -294,8 +332,9 @@ class Transformer(nn.Module):
                 g = i // per
                 cache = None if caches is None else {
                     n: caches["shared"][n][g] for n in ("k", "v")}
-                x = self.shared(x, embed0, positions=positions, cache=cache,
-                                pos=pos, mode=mode, dtype=self.dtype)
+                x = self._run(mode, functools.partial(
+                    self.shared, positions=positions, cache=cache, pos=pos,
+                    mode=mode, dtype=self.dtype), x, embed0)
         return x
 
 
@@ -351,7 +390,8 @@ def _layer_cache(cfg: ModelConfig, caches: dict, i: int) -> dict:
     return {n: t[i] for n, t in layers.items()}
 
 
-def init_model(cfg: ModelConfig, seed: int = 0, device=None) -> Transformer:
+def init_model(cfg: ModelConfig, seed: int = 0, device=None,
+               train: bool = False) -> Transformer:
     """Random weights from ``torch.Generator(device).manual_seed(seed)``,
     with the JAX package's init: truncated-normal fan-in matrices (MLA's
     and the MoE's too), the embedding scaled by √D, zero norm scales
@@ -359,9 +399,11 @@ def init_model(cfg: ModelConfig, seed: int = 0, device=None) -> Transformer:
     ``frontend_dim`` and ``mask_emb`` at D;
     for RWKV-6 also the mixes at 0.5, the base decay ``w0`` at -4 and
     ``ln_x`` at 1; for Mamba-2 ``dt_bias``, ``A_log`` and the conv bias at
-    0 and ``D`` at 1. ``device=None`` means the card."""
+    0 and ``D`` at 1. ``device=None`` means the card. ``train=True``
+    builds the training form: weights in ``cfg.param_dtype``, requiring
+    grad (the same draws, unrounded)."""
     device = resolve_device(device)
-    model = Transformer(cfg, device)
+    model = Transformer(cfg, device, train=train)
     g = torch.Generator(device=device).manual_seed(seed)
     D = cfg.d_model
 
@@ -381,15 +423,15 @@ def init_model(cfg: ModelConfig, seed: int = 0, device=None) -> Transformer:
         model.final_norm.zero_()
         if cfg.family == "hybrid":
             _init_hybrid(model, cfg, fill)
-            return model
-        for blk in model.blocks:
-            blk.ln1.zero_()
-            blk.ln2.zero_()
-            if cfg.family == "ssm":
-                _init_rwkv_block(blk, cfg, fill)
-                continue
-            _init_block(blk, cfg, fill)
-    return model
+        else:
+            for blk in model.blocks:
+                blk.ln1.zero_()
+                blk.ln2.zero_()
+                if cfg.family == "ssm":
+                    _init_rwkv_block(blk, cfg, fill)
+                else:
+                    _init_block(blk, cfg, fill)
+    return model.requires_grad_(train)
 
 
 def _init_block(blk: Block, cfg: ModelConfig, fill):
@@ -535,6 +577,8 @@ def init_caches(cfg: ModelConfig, batch: int, capacity: int,
 
 
 def forward(model: Transformer, batch: dict, *, mode: str = "train",
-            caches: dict | None = None, pos: int | None = None):
-    """Returns (logits, caches); caches are updated in place."""
-    return model(batch, mode=mode, caches=caches, pos=pos)
+            caches: dict | None = None, pos: int | None = None,
+            output: str = "logits"):
+    """Returns (logits, caches); caches are updated in place. With
+    ``output="hidden"``: ((hidden, head), the summed MoE aux loss)."""
+    return model(batch, mode=mode, caches=caches, pos=pos, output=output)

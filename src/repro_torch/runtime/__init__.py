@@ -1,1 +1,2 @@
-from .fault_tolerance import StragglerMonitor  # noqa: F401
+from .fault_tolerance import (FaultTolerantLoop, LoopReport,  # noqa: F401
+                              StragglerMonitor)

@@ -40,7 +40,11 @@ def test_import_leaves_jax_unloaded():
             "repro_torch.core.netsim_torch, repro_torch.kernels.netsim.ops, "
             "repro_torch.core.multitenant, repro_torch.core.sweep_shard, "
             "repro_torch.serve.coalesce, repro_torch.serve.optserver, "
-            "repro_torch.runtime.fault_tolerance; "
+            "repro_torch.runtime.fault_tolerance, repro_torch.train, "
+            "repro_torch.train.train_step, repro_torch.train.optimizer, "
+            "repro_torch.checkpoint, repro_torch.data, "
+            "repro_torch.data.pipeline, repro_torch.models.loss, "
+            "repro_torch.launch.train; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

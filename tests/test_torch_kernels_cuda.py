@@ -19,7 +19,10 @@ stall, route structures shared or per network, the evaluator's flow
 mode); multi-tenant contention in one waterfilling launch bit for bit
 the numpy engine, sweeps sharded over the card listed up to three
 times, the optimisation server's worker launching kernels, and kernel
-libraries loaded from two threads. (Every
+libraries loaded from two threads; the flash, WKV-6 and SSD
+``autograd.Function``s at their serve shapes in both dtypes (gradients
+equal to autograd of the plain version, an unused final state), and
+the raw wrappers refusing inputs that require grad. (Every
 kernel against its plain version at every variant, in both dtypes, is also
 ``chip_smoke.py``'s kernel phase.) The ``cuda``-marked tests
 need an NVIDIA Hopper card and nvcc and skip elsewhere. Imports no JAX,
@@ -34,6 +37,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.blockwise import blockwise_attention
+from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.kernel import flash_attention
 from repro_torch.kernels.gemm.kernel import matmul
 from repro_torch.kernels.gemm.ref import matmul_ref
@@ -41,10 +45,12 @@ from repro_torch.kernels.netsim import ops as netsim_ops
 from repro_torch.kernels.netsim.kernel import waterfill
 from repro_torch.kernels.netsim.ref import waterfill_ref
 from repro_torch.kernels.rwkv6.chunked import wkv6_chunked
+from repro_torch.kernels.rwkv6 import ops as wkv_ops
 from repro_torch.kernels.rwkv6.kernel import wkv6
 from repro_torch.kernels.sgs.kernel import sgs_batch
 from repro_torch.kernels.sgs.ref import sgs_batch_ref
 from repro_torch.kernels.ssm_scan.chunked import ssm_scan_chunked
+from repro_torch.kernels.ssm_scan import ops as ssd_ops
 from repro_torch.kernels.ssm_scan.kernel import ssm_scan
 
 F32_TOL = dict(rtol=3e-5, atol=1.2e-4)
@@ -936,3 +942,131 @@ def test_library_is_keyed_by_shared_headers(tmp_path, monkeypatch):
     assert _build.library_path("kern") == before
     header.write_text("#pragma once\n// edited\n")
     assert _build.library_path("kern") != before
+
+
+# The kernels' autograd.Functions at the serve shapes of chip_smoke.py
+# (smollm-360m's attention, rwkv6-3b's WKV-6, zamba2-2.7b's SSD), bf16 and
+# f32. The loss is linear in every output, so the backward gets the same
+# incoming gradient whichever forward ran, and the Function's backward IS
+# autograd of the plain version on the same inputs: the gradients agree
+# to the order of the card's sums (GRAD_TOL); the forward is held to the
+# kernel's own limit.
+GRAD_TOL = dict(rtol=1e-5, atol=1e-5)
+GRAD_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _leaves(tensors):
+    return [t.detach().clone().requires_grad_() for t in tensors]
+
+
+def _linear_loss(outs, weights):
+    return sum((o.float() * w).sum() for o, w in zip(outs, weights)
+               if w is not None)
+
+
+def _function_vs_plain(kernel_fn, plain_fn, inputs, weights, counter):
+    """(outputs, grads) through the Function and through autograd of the
+    plain version; the Function launches once, in its forward."""
+    before = counter.launches
+    xs = _leaves(inputs)
+    got = kernel_fn(*xs)
+    got_g = torch.autograd.grad(_linear_loss(got, weights), xs)
+    assert counter.launches == before + 1
+    ys = _leaves(inputs)
+    want = plain_fn(*ys)
+    want_g = torch.autograd.grad(_linear_loss(want, weights), ys)
+    return got, want, got_g, want_g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", GRAD_DTYPES, ids=str)
+def test_flash_function_grads_at_the_serve_shape(cuda, dtype):
+    B, S, H, KV, D = 4, 1024, 15, 5, 64       # smollm-360m
+    g = torch.Generator(device=cuda).manual_seed(11)
+    q, k, v = (torch.randn(B, S, n, D, generator=g, device=cuda).to(dtype)
+               for n in (H, KV, KV))
+    w = torch.randn(B, S, H, D, generator=g, device=cuda)
+    kw = dict(causal=True, q_chunk=512, kv_chunk=1024)
+    got, want, gg, wg = _function_vs_plain(
+        lambda *a: (flash_ops.kernel_attention(*a, **kw),),
+        lambda *a: (blockwise_attention(*a, **kw),), [q, k, v], [w],
+        flash_attention)
+    tol = F32_TOL if dtype == torch.float32 else FLASH_BF16_TOL
+    torch.testing.assert_close(got[0].float(), want[0].float(), **tol)
+    for a, b in zip(gg, wg):
+        assert a.dtype == dtype
+        torch.testing.assert_close(a.float(), b.float(), **GRAD_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", GRAD_DTYPES, ids=str)
+@pytest.mark.parametrize("use_state", [False, True])
+def test_wkv6_function_grads_at_the_serve_shape(cuda, dtype, use_state):
+    B, S, H, K = 4, 1024, 40, 64              # rwkv6-3b
+    g = torch.Generator(device=cuda).manual_seed(12)
+    r, k, v = (0.5 * torch.randn(B, S, H, K, generator=g, device=cuda)
+               for _ in range(3))
+    w = torch.exp(-torch.exp(torch.randn(B, S, H, K, generator=g,
+                                         device=cuda) - 2))
+    u = 0.3 * torch.randn(H, K, generator=g, device=cuda)
+    s0 = 0.3 * torch.randn(B, H, K, K, generator=g, device=cuda)
+    wy = torch.randn(B, S, H, K, generator=g, device=cuda)
+    ws = torch.randn(B, H, K, K, generator=g, device=cuda) if use_state \
+        else None
+    inputs = [t.to(dtype) for t in (r, k, v, w)] + [u, s0]
+    got, want, gg, wg = _function_vs_plain(
+        lambda *a: wkv_ops.kernel_wkv6(*a[:5], s0=a[5], chunk=32),
+        lambda *a: wkv6_chunked(*a[:5], s0=a[5], chunk=32), inputs,
+        [wy, ws], wkv6)
+    tol = WKV_F32_TOL if dtype == torch.float32 else WKV_BF16_TOL
+    torch.testing.assert_close(got[0].float(), want[0].float(), **tol)
+    for a, b in zip(gg, wg):
+        torch.testing.assert_close(a.float(), b.float(), **GRAD_TOL)
+        assert a.abs().max() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", GRAD_DTYPES, ids=str)
+@pytest.mark.parametrize("use_state", [False, True])
+def test_ssd_function_grads_at_the_serve_shape(cuda, dtype, use_state):
+    B, S, H, P, G, N = 4, 1024, 80, 64, 1, 64   # zamba2-2.7b
+    g = torch.Generator(device=cuda).manual_seed(13)
+    x = torch.randn(B, S, H, P, generator=g, device=cuda)
+    dt = torch.nn.functional.softplus(
+        torch.randn(B, S, H, generator=g, device=cuda) - 1)
+    a = -torch.exp(0.5 * torch.randn(H, generator=g, device=cuda))
+    Bm, Cm = (torch.randn(B, S, G, N, generator=g, device=cuda)
+              for _ in range(2))
+    D = torch.randn(H, generator=g, device=cuda)
+    h0 = 0.3 * torch.randn(B, H, P, N, generator=g, device=cuda)
+    wy = torch.randn(B, S, H, P, generator=g, device=cuda)
+    wh = torch.randn(B, H, P, N, generator=g, device=cuda) if use_state \
+        else None
+    inputs = [x.to(dtype), dt, a, Bm.to(dtype), Cm.to(dtype), D, h0]
+    got, want, gg, wg = _function_vs_plain(
+        lambda *a_: ssd_ops.kernel_ssm_scan(*a_[:6], h0=a_[6], chunk=256),
+        lambda *a_: ssm_scan_chunked(*a_[:6], h0=a_[6], chunk=256), inputs,
+        [wy, wh], ssm_scan)
+    tol = SSD_F32_TOL if dtype == torch.float32 else SSD_BF16_TOL
+    torch.testing.assert_close(got[0].float(), want[0].float(), **tol)
+    for a_, b in zip(gg, wg):
+        torch.testing.assert_close(a_.float(), b.float(), **GRAD_TOL)
+        assert a_.abs().max() > 0
+
+
+@pytest.mark.cuda
+def test_raw_wrappers_refuse_grad_under_grad_mode(cuda):
+    q = torch.randn(1, 16, 2, 32, device=cuda, requires_grad=True)
+    r = torch.rand(1, 16, 2, 16, device=cuda, requires_grad=True)
+    u = torch.zeros(2, 16, device=cuda)
+    x = torch.randn(1, 16, 2, 16, device=cuda, requires_grad=True)
+    ssd = (x, torch.rand(1, 16, 2, device=cuda), -torch.ones(2, device=cuda),
+           torch.randn(1, 16, 1, 16, device=cuda),
+           torch.randn(1, 16, 1, 16, device=cuda), torch.ones(2, device=cuda))
+    for call in (lambda: flash_attention(q, q, q),
+                 lambda: wkv6(r, r, r, r, u),
+                 lambda: ssm_scan(*ssd)):
+        with pytest.raises(RuntimeError, match="requires grad"):
+            call()
+        with torch.no_grad():
+            call()
