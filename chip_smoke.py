@@ -154,6 +154,27 @@ Phases, each printing its lines; any failure exits nonzero:
      block) at published widths, batch 4, seq 1024, 3 steps each through
      the same train step and FaultTolerantLoop: WKV-6 twice a layer and
      step, SSD twice a Mamba-2 layer and flash twice a group.
+ 12. mesh: the sharded layer (repro_torch.launch.dryrun, the partition
+     rules as DTensor placements). Three dry runs on a fake world of
+     256 or 512 ranks in this process, tensors with shapes and no
+     memory, depth cut: smollm-360m train_4k on (16, 16) (2 of 32
+     layers), deepseek-v2-236b train_4k on (2, 16, 16) (its dense layer
+     and one MoE layer, accumulation 1 where the policy has 8) and
+     minicpm3-4b prefill_32k with its perf_knobs (2 of 62 layers, attention
+     chunks of 4096: the plain version computes every block, so the
+     FLOPs do not change); per-device memory, FLOPs and collective bytes
+     and the trace's seconds; argument bytes equal to the local shards'
+     bytes the specs give. Then the card as a (1, 1) NCCL mesh:
+     execute_plan for smollm-360m at full width (2 layers, prefill, seq
+     512, batch 8) run for real, flash launched once a layer, the
+     projections' mm/addmm/bmm FLOPs counted on the card equal to the
+     fake (1, 1) dry run's of the same cell, allocated argument bytes
+     within 1% of the prediction, peak memory beside the prediction;
+     launch.train --mesh debug at full width (4 of 32 layers, batch 8,
+     seq 512, 3 steps), each loss within MESH_LOSS_RTOL of the meshless
+     trainer's and the launch counts equal; compressed_all_reduce_mean
+     on the 1-rank group bit for bit dequantize(quantize(g + err)), and a
+     planted fault (err dropped) rejected.
 Then one JSON line of kernel numbers, and as the last line
 {"ok": true, "device": {...}}. Without a card it exits 1 and prints no
 result. Imports nothing of JAX.
@@ -3937,6 +3958,238 @@ def phase_train():
     return total
 
 
+# Phase 12. The fake-world dry runs: (arch, shape, multi-pod, layers,
+# knobs). Depth is cut to fit the phase's time: the trace runs every op of
+# the step in Python (~1 ms an op); the CLI traces full depth.
+MESH_DRYRUNS = (
+    ("smollm-360m", "train_4k", False, 2, {}),
+    ("deepseek-v2-236b", "train_4k", True, 2, {"accum": 1}),
+    ("minicpm3-4b", "prefill_32k", False, 2,
+     {"cfg_overrides": {"attn_chunk": 4096}, "perf": True}),
+)
+# execute_plan's cell on the card, and the mesh trainer's run.
+MESH_PLAN = dict(arch="smollm-360m", layers=2, seq=512, batch=8)
+MESH_TRAIN = dict(layers=4, batch=8, seq=512, steps=3)
+# The mesh trainer on the (1, 1) mesh against the meshless one: the same
+# ops on the same shards, bf16 compute (the regions change no order of a
+# sum on one rank).
+MESH_LOSS_RTOL = 1e-4
+# Allocated argument bytes against the specs' prediction.
+MESH_ARG_RTOL = 0.01
+
+
+def _spec_bytes(cfg, kind, shape, mesh, knobs, arch):
+    """The local shards' bytes of a cell's arguments, from the specs
+    alone: parameters (and Adam's moments in the policies' dtypes, the
+    step and its count), the batch, the caches."""
+    from repro_torch.configs import SHAPE_DEFS
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.policies import TRAIN_LOWMEM
+    from repro_torch.models.transformer import Transformer, init_caches
+    from repro_torch.sharding.logical import local_shape, sanitize_spec
+    from repro_torch.sharding.partition_specs import (cache_shardings,
+                                                      data_specs,
+                                                      param_specs)
+
+    def local(shape_, spec, itemsize):
+        return math.prod(local_shape(shape_, spec, mesh)) * itemsize
+    fsdp = ("pod", "data") if arch in TRAIN_LOWMEM else ("data",)
+    if kind != "train" and knobs.get("serve_fsdp") is not None:
+        fsdp = knobs["serve_fsdp"]
+    params = dict(Transformer(cfg, "meta", train=True).named_parameters())
+    specs = param_specs(cfg, params, mesh, fsdp)
+    per = {n: p.element_size() for n, p in params.items()}
+    if kind == "train":
+        m_dt, v_dt = dryrun._moment_dtypes(arch)
+        per = {n: b + m_dt.itemsize + v_dt.itemsize for n, b in per.items()}
+    total = sum(local(p.shape, specs[n], per[n]) for n, p in params.items())
+    if kind == "train":
+        total += 2 * 4                           # the step and its count
+    sd = SHAPE_DEFS[shape]
+    B, S = sd["global_batch"], sd["seq_len"]
+    tok = (B, 1 if kind == "decode" else S)
+    total += local(tok, sanitize_spec(data_specs(mesh)["tokens"], tok, mesh),
+                   8)
+    if kind in ("prefill", "decode"):
+        caches = init_caches(cfg, B, S, dtype=torch.bfloat16, device="meta")
+        cs = cache_shardings(caches, cfg, mesh)
+
+        def walk(t, sp):
+            return sum(walk(v, sp[k]) if isinstance(v, dict) else
+                       local(v.shape, sp[k], v.element_size())
+                       for k, v in t.items())
+        total += walk(caches, cs)
+    return total
+
+
+def _mesh_dryruns():
+    """The fake-world dry runs; → the fake (1, 1) record of execute_plan's
+    cell."""
+    import logging
+
+    from repro_torch.configs import SHAPE_DEFS, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_debug_mesh, make_production_mesh
+
+    logging.getLogger("torch.distributed").setLevel(logging.ERROR)
+    for arch, shape, multi, layers, knobs in MESH_DRYRUNS:
+        knobs = dict(knobs)
+        if knobs.pop("perf", False):
+            knobs.update(dryrun.perf_knobs(arch, shape))
+        dryrun.ensure_fake_world(512 if multi else 256)
+        mesh = make_production_mesh(multi_pod=multi)
+        cfg = get_config(arch).replace(n_layers=layers)
+        t0 = time.perf_counter()
+        rec = dryrun.run_cell(arch, shape, "multi_pod_2x16x16" if multi
+                              else "single_pod_16x16", mesh, cfg=cfg,
+                              **knobs)
+        wall = time.perf_counter() - t0
+        want = _spec_bytes(cfg.replace(**knobs.get("cfg_overrides", {})),
+                           rec["kind"], shape, mesh, knobs, arch)
+        row = {k: rec[k] for k in ("arch", "shape", "mesh", "kind",
+                                   "n_devices", "memory",
+                                   "flops_per_device", "bytes_per_device",
+                                   "collective_bytes_per_device",
+                                   "lower_s", "compile_s")}
+        log("mesh", json.dumps({**row, "layers": layers, "knobs": {
+            k: v for k, v in knobs.items() if k != "extra_rules"},
+            "spec_argument_bytes": want, "wall_s": wall}))
+        assert rec["memory"]["argument_size_in_bytes"] == want, (
+            rec["memory"], want)
+        assert rec["flops_per_device"] > 0
+        assert rec["collective_bytes_per_device"], rec
+    p = MESH_PLAN
+    SHAPE_DEFS["__mesh_plan"] = dict(seq_len=p["seq"],
+                                     global_batch=p["batch"], kind="prefill")
+    dryrun.ensure_fake_world(1)
+    cfg = get_config(p["arch"]).replace(n_layers=p["layers"])
+    fake = dryrun.run_cell(p["arch"], "__mesh_plan", "fake_1x1",
+                           make_debug_mesh(1), cfg=cfg)
+    log("mesh", "fake (1, 1) " + json.dumps({
+        k: fake[k] for k in ("memory", "flops_by_op",
+                             "kernel_flops_per_device", "lower_s")}))
+    import torch.distributed as dist
+    dist.destroy_process_group()
+    return fake
+
+
+def _check_compress(fn, g, err):
+    """``fn(g, err)`` → (mean, new err) against dequantize(quantize(g +
+    err)) on one rank, bit for bit; → whether it held."""
+    from repro_torch.train.grad_compress import compress_residual
+    q, scale, want_err = compress_residual(g, err)
+    want = q.float() * scale
+    got, got_err = fn(g, err)
+    return torch.equal(got, want) and torch.equal(got_err, want_err)
+
+
+def phase_mesh():
+    import contextlib
+    import io
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.sharding.mcm_planner import plan
+    from repro_torch.train.grad_compress import compressed_all_reduce_mean
+
+    t_phase = time.perf_counter()
+    total = collections.Counter()
+    fake = _mesh_dryruns()
+
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_debug_mesh(1)
+        # the communicator is set up at the first collective: before the
+        # allocations execute_plan measures
+        dist.all_reduce(torch.ones(1, device="cuda"))
+        p = MESH_PLAN
+        cfg = get_config(p["arch"]).replace(n_layers=p["layers"])
+        pr = plan(cfg, (1, 1), p["seq"], p["batch"], layers=p["layers"],
+                  ga_budget=4)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reset_launch_counts()
+        rec = dryrun.execute_plan(pr, p["arch"], "__mesh_plan", mesh,
+                                  mesh_name="card_1x1", cfg=cfg)
+        counts = launch_counts()
+        total.update(counts)
+        model = {k: v for k, v in rec["flops_by_op"].items()
+                 if k in ("mm", "addmm", "bmm", "baddbmm")}
+        fake_model = (fake["flops_per_device"]
+                      - sum(fake["kernel_flops_per_device"].values()))
+        pred = rec["memory"]["argument_size_in_bytes"]
+        got = rec["measured"]["argument_bytes_allocated"]
+        log("mesh", "execute_plan on the card " + json.dumps({
+            "plan": rec["plan"], "launches": {k: v for k, v in
+                                              counts.items() if v},
+            "projection_flops": sum(model.values()),
+            "fake_projection_flops": fake_model,
+            "argument_bytes_predicted": pred,
+            "argument_bytes_allocated": got,
+            "peak_bytes_allocated": rec["measured"]["peak_bytes_allocated"],
+            "peak_predicted": pred + rec["memory"]["temp_size_in_bytes"]
+            + rec["memory"]["output_size_in_bytes"],
+            "wall_s": rec["lower_s"], "card": CARD}))
+        assert counts["flash_attention"] == p["layers"], counts
+        assert sum(v for k, v in counts.items()
+                   if k != "flash_attention") == 0, counts
+        assert sum(model.values()) == fake_model, (model, fake_model)
+        assert abs(got - pred) <= MESH_ARG_RTOL * pred, (got, pred)
+
+        tr = MESH_TRAIN
+        args = ["--arch", p["arch"], "--layers", str(tr["layers"]),
+                "--batch", str(tr["batch"]), "--seq", str(tr["seq"]),
+                "--steps", str(tr["steps"]), "--log-every", "1"]
+        runs = {}
+        for name, extra in (("meshless", []), ("mesh", ["--mesh", "debug"])):
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                report = train_mod.main(args + extra)
+            torch.cuda.synchronize()
+            counts = {k: v for k, v in launch_counts().items() if v}
+            total.update(counts)
+            runs[name] = (report, counts)
+            log("mesh", json.dumps({
+                "trainer": name, "layers": tr["layers"],
+                "losses": report.losses, "launches": counts,
+                "step_ms": [1e3 * x for x in report.step_s],
+                "wall_s": time.perf_counter() - t0,
+                "mesh_line": [ln for ln in out.getvalue().splitlines()
+                              if "[train]" in ln][:1], "card": CARD}))
+        (plain, pc), (meshed, mc) = runs["meshless"], runs["mesh"]
+        assert pc == mc, (pc, mc)
+        assert len(meshed.losses) == len(plain.losses) == tr["steps"]
+        for a, b in zip(meshed.losses, plain.losses):
+            assert abs(a - b) <= MESH_LOSS_RTOL * abs(b), (meshed.losses,
+                                                           plain.losses)
+
+        g = torch.Generator(device="cuda").manual_seed(5)
+        grad = 3 * torch.randn(4096, 960, generator=g, device="cuda")
+        err = 0.01 * torch.randn(4096, 960, generator=g, device="cuda")
+        ok = _check_compress(compressed_all_reduce_mean, grad, err)
+        fault = _check_compress(lambda x, e: compressed_all_reduce_mean(
+            x, torch.zeros_like(e)), grad, err)
+        log("mesh", json.dumps({"compressed_all_reduce_mean_1rank": ok,
+                                "planted_err_dropped_rejected": not fault}))
+        assert ok and not fault
+    finally:
+        dist.destroy_process_group()
+    log("mesh", f"phase 12 in {time.perf_counter() - t_phase:.1f}s")
+    return total
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -3962,9 +4215,10 @@ def main():
     launches.update(counts)
     launches.update(phase_cosearch())
     launches.update(phase_train())
-    log("train", f"launches over the calibration pass, the serve "
+    launches.update(phase_mesh())
+    log("mesh", f"launches over the calibration pass, the serve "
         f"paths, the encoder, the pipelining sweep, the flow legs, phase 9, "
-        f"phase 10 and the trainer: {dict(launches)}")
+        f"phase 10, the trainer and phase 12: {dict(launches)}")
     kernels = [{
         "name": name, "route": "cuda", "source": src, "replaces": tpu,
         "launches": launches[name],

@@ -8,10 +8,13 @@ the tree paths with "/" written "|") plus a json manifest (shapes, dtypes,
 step). numpy has no bfloat16: a bf16 tensor is saved as its 16-bit
 pattern and the manifest's dtype "bfloat16" turns it back on restore.
 
-``restore(device=...)`` puts each leaf on the given device. Background
-saving copies to the host in the caller and writes on a thread, so the
-train loop runs on; ``wait()`` joins it. JAX's ``shardings`` argument
-(an elastic reshard over a device mesh) has no one-card counterpart.
+``restore(device=...)`` puts each leaf on the given device;
+``restore(placements=..., mesh=...)`` also distributes each leaf over a
+device mesh (JAX's ``shardings``, the elastic path: a checkpoint holds
+whole tensors, so it restores onto any mesh). A DTensor leaf is saved
+whole (``full_tensor``, a collective every rank of its mesh joins).
+Background saving copies to the host in the caller and writes on a
+thread, so the train loop runs on; ``wait()`` joins it.
 """
 from __future__ import annotations
 
@@ -48,6 +51,8 @@ def _unflatten(flat: dict):
 def _to_host(v) -> tuple[np.ndarray, str]:
     """(numpy array, the manifest's dtype name)."""
     if isinstance(v, torch.Tensor):
+        if hasattr(v, "full_tensor"):           # a DTensor: saved whole
+            v = v.full_tensor()
         t = v.detach().cpu()
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).numpy(), "bfloat16"
@@ -126,9 +131,14 @@ class Checkpointer:
         s = self.steps()
         return s[-1] if s else None
 
-    def restore(self, step: int | None = None, device=None):
+    def restore(self, step: int | None = None, device=None,
+                placements=None, mesh=None):
         """(state tree of tensors, step): the latest checkpoint unless
-        ``step`` is given, each leaf on ``device`` (the CPU when None)."""
+        ``step`` is given, each leaf on ``device`` (the CPU when None).
+        With ``placements`` (a tree of DTensor placements, any part of the
+        state's) and ``mesh``, each leaf it names becomes a DTensor on
+        ``mesh`` holding this rank's shard (no communication: every rank
+        reads the whole leaf)."""
         step = step if step is not None else self.latest()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
@@ -143,4 +153,10 @@ class Checkpointer:
                 if keys[key]["dtype"] == "bfloat16":
                     t = t.view(torch.bfloat16)
                 flat[key] = t if device is None else t.to(device)
+        if placements is not None:
+            from torch.distributed.tensor import distribute_tensor
+            where = _flatten(placements)
+            flat = {k: distribute_tensor(t, mesh, where[k],
+                                         src_data_rank=None)
+                    if k in where else t for k, t in flat.items()}
         return _unflatten(flat), step

@@ -2,6 +2,9 @@
 ``_build`` at first use, each beside its plain PyTorch version."""
 from __future__ import annotations
 
+import contextlib
+import contextvars
+
 import torch
 
 
@@ -53,3 +56,23 @@ def remat(fn, *args):
         return checkpoint(fn, *args, use_reentrant=False,
                           preserve_rng_state=False)
     return fn(*args)
+
+
+_SCOPE: contextvars.ContextVar[str | None] = contextvars.ContextVar(
+    "kernel_scope", default=None)
+
+
+@contextlib.contextmanager
+def kernel_scope(name: str):
+    """Marks the ops of one kernel's route (its launch, or its plain
+    version on the CPU), so that a dispatch-level counter
+    (``launch.dryrun``) can tell them from the model's own ops."""
+    token = _SCOPE.set(name)
+    try:
+        yield
+    finally:
+        _SCOPE.reset(token)
+
+
+def current_kernel_scope() -> str | None:
+    return _SCOPE.get()

@@ -36,8 +36,12 @@ Fitting contract (the JAX pass's formulas):
 What differs from the JAX pass, and why:
 
 * There is no ``calibration()`` context, ``scan_unroll()`` or
-  ``cost_analysis`` reading. They repair XLA counting a ``while`` body
-  once per program; the port has no compiled graph to count.
+  ``_cost_dict``. They repair XLA's ``cost_analysis`` counting a
+  ``while`` body once, not per trip. The port's dry run
+  (``launch.dryrun``) counts the ops of the step it runs, every trip of
+  every loop (layers, chunks, microbatches) included, so its counts need
+  no repair; ``dryrun.calibrate_cell`` keeps JAX's per-unit
+  extrapolation, which equals the full-depth trace.
 * Counts are analytic. A gemm sample's ``flops`` is 2·M·K·N, which is
   what XLA reports for the JAX ``matmul_ref``. The other samples count
   the matrix products of their plain chunked form; their FLOPs do not

@@ -14,7 +14,8 @@ from __future__ import annotations
 
 import torch
 
-from .. import plain_backward
+from ...sharding.logical import heads_specs, local_region, mesh_of, placements
+from .. import kernel_scope, plain_backward
 from . import kernel
 from .blockwise import blockwise_attention
 from .ref import attention_ref  # noqa: F401
@@ -58,6 +59,12 @@ def attention(q, k, v, *, causal=True, window=None, softcap=None,
     picks its own tiles."""
     kw = dict(causal=causal, window=window, softcap=softcap, scale=scale,
               q_chunk=q_chunk, kv_chunk=kv_chunk)
-    if q.device.type == "cpu":
-        return blockwise_attention(q, k, v, **kw)
-    return kernel_attention(q, k, v, **kw)
+    mesh = mesh_of(q, k, v)
+    if mesh is not None:
+        specs = heads_specs(mesh, q, k, v)
+        return local_region(lambda a, b, c: attention(a, b, c, **kw), mesh,
+                            (q, k, v), specs, placements(specs[0], mesh))
+    with kernel_scope("flash_attention"):
+        if q.device.type == "cpu":
+            return blockwise_attention(q, k, v, **kw)
+        return kernel_attention(q, k, v, **kw)

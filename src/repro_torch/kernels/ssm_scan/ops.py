@@ -8,15 +8,20 @@ On CUDA tensors the kernel runs inside ``SSMScan``, an
 the plain chunked version on the saved inputs and differentiates it (the
 JAX package's training path differentiates the same chunked function,
 rematerialised per chunk). On CPU tensors autograd differentiates the
-plain version directly.
+plain version directly. On DTensors the op runs on each rank's local
+shard through ``local_map`` (the batch over the data axes, the heads over
+``model``; the B and C groups whole), as ``flash_attention.ops.attention``
+does.
 """
 from __future__ import annotations
 
 import torch
 
-from .. import plain_backward
+from ...sharding.logical import (Spec, heads_specs, local_region, mesh_of,
+                                 placements)
+from .. import kernel_scope, plain_backward
 from . import kernel
-from .chunked import ssm_scan_chunked
+from .chunked import ssm_decode_step, ssm_scan_chunked
 from .ref import ssm_scan_ref  # noqa: F401
 
 
@@ -54,6 +59,38 @@ def ssm_scan(x, dt, a, Bmat, Cmat, D, h0=None, chunk: int = 256):
     tiles the plain version only: the kernel's bf16 path takes chunks of
     64 steps on the tensor cores, its f32 path walks time one step at a
     time."""
-    if x.device.type == "cpu":
-        return ssm_scan_chunked(x, dt, a, Bmat, Cmat, D, h0=h0, chunk=chunk)
-    return kernel_ssm_scan(x, dt, a, Bmat, Cmat, D, h0=h0, chunk=chunk)
+    mesh = mesh_of(x, dt, a, Bmat, Cmat, D, h0)
+    if mesh is not None:
+        sx = heads_specs(mesh, x)[0]
+        dp, hd = sx[0], sx[2]
+        sb = Spec(dp, None, None, None)
+        specs = (sx, Spec(dp, None, hd), Spec(hd), sb, sb, Spec(hd),
+                 None if h0 is None else Spec(dp, hd, None, None))
+        return local_region(
+            lambda *t: ssm_scan(*t, chunk=chunk), mesh,
+            (x, dt, a, Bmat, Cmat, D, h0), specs,
+            (placements(sx, mesh),
+             placements(Spec(dp, hd, None, None), mesh)))
+    with kernel_scope("ssm_scan"):
+        if x.device.type == "cpu":
+            return ssm_scan_chunked(x, dt, a, Bmat, Cmat, D, h0=h0,
+                                    chunk=chunk)
+        return kernel_ssm_scan(x, dt, a, Bmat, Cmat, D, h0=h0, chunk=chunk)
+
+
+def ssm_step(h, x, dt, a, Bmat, Cmat, D):
+    """Decode's one-token SSD step (``chunked.ssm_decode_step``, plain
+    PyTorch on every device): h (B,H,P,N) f32, x (B,H,P), dt (B,H),
+    Bmat/Cmat (B,G,N) → (y (B,H,P), new state). On DTensors, on the
+    local shards (the batch over the data axes, the heads over
+    ``model``)."""
+    mesh = mesh_of(h, x, dt, a, Bmat, Cmat, D)
+    if mesh is None:
+        return ssm_decode_step(h, x, dt, a, Bmat, Cmat, D)
+    sh = heads_specs(mesh, h, heads_dim=1)[0]
+    dp, hd = sh[0], sh[1]
+    sx = Spec(dp, hd, None)
+    sb = Spec(dp, None, None)
+    return local_region(ssm_decode_step, mesh, (h, x, dt, a, Bmat, Cmat, D),
+                        (sh, sx, Spec(dp, hd), Spec(hd), sb, sb, Spec(hd)),
+                        (placements(sx, mesh), placements(sh, mesh)))

@@ -118,3 +118,54 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+    def param_count(self) -> int:
+        """Analytic parameter count (total, incl. embeddings), JAX's
+        formula (the roofline's; not the exact tree size)."""
+        D, F, L, V = self.d_model, self.d_ff, self.n_layers, self.padded_vocab
+        n = V * D  # embed
+        if not self.tie_embeddings:
+            n += D * V
+        per_layer = 0
+        if self.family in ("dense", "moe", "vlm", "audio"):
+            per_layer += self._attn_params()
+            if self.family == "moe":
+                e = self.n_experts + self.n_shared_experts
+                per_layer += 3 * D * self.moe_d_ff * e + D * self.n_experts
+            else:
+                per_layer += 3 * D * F
+            per_layer += 2 * D  # norms
+            n += per_layer * L
+            if self.family == "moe" and self.first_dense_layers:
+                n += (3 * D * F - 3 * D * self.moe_d_ff
+                      * (self.n_experts + self.n_shared_experts)
+                      - D * self.n_experts) * self.first_dense_layers
+        elif self.family in ("ssm", "hybrid"):
+            di = self.d_inner
+            mamba = (D * (2 * di + 2 * self.ssm_heads *
+                          self.ssm_state)  # in/x proj approx
+                     + di * D + di * self.ssm_conv + 2 * D)
+            if self.family == "ssm" and self.name.startswith("rwkv"):
+                mamba = 0
+            n += mamba * L
+            if self.hybrid_attn_period:
+                n += self._attn_params(2 * D) + 3 * (2 * D) * self.d_ff
+        if self.name.startswith("rwkv"):
+            n += L * (4 * D * D + D * F + F * D + 6 * D)
+        return n
+
+    def _attn_params(self, d_in: int | None = None) -> int:
+        D = d_in or self.d_model
+        if self.attn_type == "mla":
+            q = (D * self.q_lora_rank
+                 + self.q_lora_rank * self.n_heads
+                 * (self.qk_nope_dim + self.qk_rope_dim)
+                 if self.q_lora_rank else
+                 D * self.n_heads * (self.qk_nope_dim + self.qk_rope_dim))
+            kv = (D * (self.kv_lora_rank + self.qk_rope_dim)
+                  + self.kv_lora_rank * self.n_heads
+                  * (self.qk_nope_dim + self.v_head_dim))
+            o = self.n_heads * self.v_head_dim * self.d_model
+            return q + kv + o
+        H, KV, Dh = self.n_heads, self.n_kv_heads, self.d_head
+        return D * H * Dh + 2 * D * KV * Dh + H * Dh * self.d_model

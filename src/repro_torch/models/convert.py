@@ -185,6 +185,40 @@ def from_jax_params(cfg: ModelConfig, params: dict, dtype=None) -> dict:
     return state
 
 
+def jax_leaf_paths(cfg: ModelConfig) -> dict:
+    """{port name: (path of its leaf in the JAX parameter tree, the number
+    of stack dims that leaf has before the port's shape)}: 0 for the
+    top-level leaves and ``shared_attn``, 1 in a stacked block (gemma2's
+    pairs under their ``local``/``global`` stack), 2 in the hybrid
+    family's (groups, period) stack. The same tables as
+    ``from_jax_params``."""
+    out = {"embed": (("embed",), 0), "final_norm": (("final_norm",), 0)}
+    if not cfg.tie_embeddings:
+        out["lm_head"] = (("lm_head",), 0)
+    for name in _FRONTEND.get(cfg.frontend, ()):
+        out[name] = ((name,), 0)
+    nd = cfg.first_dense_layers
+    stack = 2 if cfg.family == "hybrid" else 1
+    for i in range(cfg.n_layers):
+        tree = ("dense_blocks",) if i < nd else ("blocks",)
+        if cfg.local_global_period:
+            tree += ("global" if (i - nd) % 2 else "local",)
+        moe = cfg.family == "moe" and i >= nd
+        for path, name in _block_leaves(cfg, moe).items():
+            out[f"blocks.{i}.{name}"] = (tree + path, stack)
+    if cfg.family == "hybrid":
+        for path, name in _SHARED_LEAVES.items():
+            out[name] = (("shared_attn",) + path, 0)
+    return out
+
+
+def jax_ranks(cfg: ModelConfig, params: dict) -> dict:
+    """{port name: the rank of its JAX leaf}: the port's rank plus the
+    leaf's stack dims (``jax_leaf_paths``). ``params`` {name: tensor}."""
+    paths = jax_leaf_paths(cfg)
+    return {n: p.dim() + paths[n][1] for n, p in params.items()}
+
+
 def train_state_from_jax(cfg: ModelConfig, state: dict) -> dict:
     """A JAX ``TrainState`` with numpy leaves ({"params", "opt": {"m",
     "v", "count"}, "step"}) → the port's (``train.train_step``): params

@@ -5,6 +5,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...sharding.logical import (Spec, local_params, local_region, mesh_of,
+                                 row_parallel, rule, shard, split_axis)
+from ...sharding.logical import placements as to_placements
+from ...sharding.logical import sanitize_spec
 from .common import act_fn, weight
 
 
@@ -19,10 +23,35 @@ class MLP(nn.Module):
         self.w_down = weight(d_ff, d_out, dtype=dtype, device=device)
 
     def forward(self, x, act: str = "silu", dtype=torch.bfloat16):
+        mesh = mesh_of(x, self.w_gate)
+        if mesh is not None:
+            return self._on_mesh(mesh, x, act, dtype)
+        return shard(self._mlp(x, act, dtype), "act_btd")
+
+    def _mlp(self, x, act, dtype):
         x = x.to(dtype)
         g = x @ self.w_gate.to(dtype)
         u = x @ self.w_up.to(dtype)
-        return (act_fn(act)(g) * u) @ self.w_down.to(dtype)
+        h = shard(act_fn(act)(g) * u, "act_btf")
+        return h @ self.w_down.to(dtype)
+
+    def _on_mesh(self, mesh, x, act, dtype):
+        """In a ``local_map`` region (PERF.md §3): x with its batch over
+        the data axes and whole on ``model``, the hidden width split over
+        ``model`` (w_gate and w_up by columns, w_down by rows: JAX's
+        ``act_btf``), the output a partial sum over the split."""
+        fs = split_axis(mesh, self.w_gate.shape[1])
+        sx = sanitize_spec(Spec(rule("act_btd", mesh)[0], None, None),
+                           x.shape, mesh)
+
+        def local(xl, wg, wu, wd):
+            with local_params(self, w_gate=wg, w_up=wu, w_down=wd):
+                return self._mlp(xl, act, dtype)
+        out = local_region(local, mesh,
+                           (x, self.w_gate, self.w_up, self.w_down),
+                           (sx, Spec(None, fs), Spec(None, fs),
+                            Spec(fs, None)), row_parallel(sx, mesh, fs))
+        return shard(out, "act_btd")
 
 
 class MoE(nn.Module):
@@ -60,13 +89,123 @@ class MoE(nn.Module):
             self.shared = MLP(D, Fe * cfg.n_shared_experts, D, dtype, device)
         self.cfg = cfg
 
-    def route(self, xg, T, gs, capacity_factor, dtype):
-        """Routing of the padded tokens xg (G·gs, D), T of them real:
+    def forward(self, x, dtype=torch.bfloat16, *,
+                capacity_factor: float | None = None, group_size: int = 256):
+        """x (B, S, D) → (out (B, S, D), the router's aux loss)."""
+        cfg = self.cfg
+        B, S, D = x.shape
+        E, K = cfg.n_experts, cfg.moe_top_k
+        T = B * S
+        cf = capacity_factor or cfg.moe_capacity_factor
+        gs = T if T <= 256 else min(group_size, T)
+        ws = (self.router, self.w_gate, self.w_up, self.w_down)
+        mesh = mesh_of(x, *ws)
+        if mesh is None:
+            out, psum, csum, n = self._experts(x, *ws, e0=0, T=T, gs=gs,
+                                               cf=cf, dtype=dtype)
+        else:
+            out, psum, csum, n = self._on_mesh(mesh, x, ws, T, gs, cf, dtype)
+        aux = ((psum / n) * (csum / (n * K))).sum() * E
+        if cfg.n_shared_experts:
+            out = out + self.shared(x.to(dtype), cfg.act, dtype)
+        return shard(out, "act_btd"), aux
+
+    def _on_mesh(self, mesh, x, ws, T, gs, cf, dtype):
+        """The routed experts in a ``local_map`` region (PERF.md §3): x
+        with its batch over the data axes and whole on ``model``; the
+        router whole; the experts split over ``model`` (EP, JAX's
+        ``moe_ecd``) or, when n_experts does not divide it, their FFN dim
+        (JAX's fallback of ``moe_ecf``). Each rank runs its experts on its
+        tokens, so the output is a partial sum over ``model``; the
+        router's sums are partial over the data axes (and over ``model``,
+        where only rank 0 contributes them). A replicated weight's
+        gradient is partial where the work is split
+        (``local_region``)."""
+        from torch.distributed.tensor import Partial, Replicate, Shard
+
+        E = self.cfg.n_experts
+        dp, model = rule("act_btd", mesh)[0], rule("moe_ecd", mesh)[1]
+        sx = sanitize_spec(Spec(dp, None, None), x.shape, mesh)
+        ep = sanitize_spec(Spec(model), (E,), mesh)[0]
+        if ep is not None:
+            sg = su = sd = Spec(ep, None, None)
+        else:
+            sg = su = sanitize_spec(Spec(None, None, model),
+                                    self.w_gate.shape, mesh)
+            sd = Spec(None, sg[2], None)
+        names = list(mesh.mesh_dim_names)
+        row = to_placements(sx, mesh)
+        split = [n == model and (ep or sg[2]) for n in names]
+        out_pl = [Partial() if sp else p for sp, p in zip(split, row)]
+        sums = [Partial() if isinstance(p, Shard) or n == model
+                else Replicate() for n, p in zip(names, row)]
+        e_local = E // (mesh.shape[names.index(model)] if ep else 1)
+
+        def local(xl, r, wg, wu, wd):
+            rank = (mesh.get_coordinate() or [0] * len(names))[
+                names.index(model)]
+            out, psum, csum, _ = self._experts(
+                xl, r, wg, wu, wd, e0=rank * e_local if ep else 0, T=T,
+                gs=gs, cf=cf, dtype=dtype)
+            # every model rank routes alike: the router's sums count once
+            # (rank 0's), so the aux loss's gradient is not summed m times
+            first = float(rank == 0)
+            return out, psum * first, csum * first
+        out, psum, csum = local_region(
+            local, mesh, (x,) + tuple(ws),
+            (sx, Spec(None, None), sg, su, sd),
+            (out_pl, sums, sums))
+        return out, psum, csum, (-(-T // gs)) * gs
+
+    def _experts(self, x, router, w_gate, w_up, w_down, *, e0, T, gs, cf,
+                 dtype):
+        """Routing of x's tokens over all experts, and the experts
+        e0..e0 + w_gate.shape[0] − 1 on them (all of them off a mesh). →
+        (out (B, S, D), the probabilities' sum over the (padded) tokens
+        (E,), the routes' count per expert (E,), the padded token count)."""
+        cfg = self.cfg
+        B, S, D = x.shape
+        E, K = cfg.n_experts, cfg.moe_top_k
+        El = w_gate.shape[0]
+        Tl = B * S
+        xt = x.reshape(Tl, D).to(dtype)
+        if Tl != T and (T <= 256 or Tl % gs):
+            if T > 256:
+                raise NotImplementedError(
+                    f"{Tl} local tokens do not form groups of {gs}")
+            gs = Tl                       # one dropless group a shard
+        xg = F.pad(xt, (0, 0, 0, (-Tl) % gs))
+        G = xg.shape[0] // gs
+        probs, gate, sel, ranks, C = self.route(xg, Tl, gs, cf, dtype,
+                                                router)
+        if T <= 256:
+            C = gs * K
+        keep = ranks < C
+        mine = keep & (sel >= e0) & (sel < e0 + El)
+        group = torch.arange(G * gs, device=x.device)[:, None] // gs
+        slot = torch.where(mine, group * C + ranks, G * C)
+        sel_l = torch.where(mine, sel - e0, 0)
+
+        ex_in = xg.new_zeros(El, G * C + 1, D)
+        ex_in[sel_l, slot] = xg[:, None, :].expand(-1, K, -1)
+        h = act_fn(cfg.act)(torch.bmm(ex_in, w_gate.to(dtype))) * \
+            torch.bmm(ex_in, w_up.to(dtype))
+        ex_out = torch.bmm(h, w_down.to(dtype))
+        w = (gate * mine).to(dtype).float()
+        out = (ex_out[sel_l, slot].float() * w[..., None]).sum(1).to(dtype)
+        psum = probs.sum(0)
+        csum = F.one_hot(sel, E).sum(1).float().sum(0)
+        return out[:Tl].reshape(B, S, D), psum, csum, G * gs
+
+    def route(self, xg, T, gs, capacity_factor, dtype, router=None):
+        """Routing of the padded tokens xg (G·gs, D), T of them real, by
+        ``router`` (default: this layer's):
         (probs (G·gs, E) f32, gate values (G·gs, K) f32, experts (G·gs,
         K), ranks (G·gs, K), capacity C)."""
         E, K = self.cfg.n_experts, self.cfg.moe_top_k
         G = xg.shape[0] // gs
-        probs = torch.softmax((xg @ self.router.to(dtype)).float(), dim=-1)
+        router = self.router if router is None else router
+        probs = torch.softmax((xg @ router.to(dtype)).float(), dim=-1)
         if xg.shape[0] != T:
             probs = probs * (torch.arange(xg.shape[0], device=xg.device)
                              < T)[:, None]
@@ -78,36 +217,3 @@ class MoE(nn.Module):
         flat = F.one_hot(sel, E).reshape(G, gs * K, E)
         ranks = ((flat.cumsum(1) - flat) * flat).sum(-1).reshape(-1, K)
         return probs, gate, sel, ranks, C
-
-    def forward(self, x, dtype=torch.bfloat16, *,
-                capacity_factor: float | None = None, group_size: int = 256):
-        """x (B, S, D) → (out (B, S, D), the router's aux loss)."""
-        cfg = self.cfg
-        B, S, D = x.shape
-        E, K = cfg.n_experts, cfg.moe_top_k
-        T = B * S
-        cf = capacity_factor or cfg.moe_capacity_factor
-        xt = x.reshape(T, D).to(dtype)
-        gs = T if T <= 256 else min(group_size, T)
-        xg = F.pad(xt, (0, 0, 0, (-T) % gs))
-        G = xg.shape[0] // gs
-        probs, gate, sel, ranks, C = self.route(xg, T, gs, cf, dtype)
-        keep = ranks < C
-        group = torch.arange(G * gs, device=x.device)[:, None] // gs
-        slot = torch.where(keep, group * C + ranks, G * C)
-
-        ex_in = xg.new_zeros(E, G * C + 1, D)
-        ex_in[sel, slot] = xg[:, None, :].expand(-1, K, -1)
-        h = act_fn(cfg.act)(torch.bmm(ex_in, self.w_gate.to(dtype))) * \
-            torch.bmm(ex_in, self.w_up.to(dtype))
-        ex_out = torch.bmm(h, self.w_down.to(dtype))
-        w = (gate * keep).to(dtype).float()
-        out = (ex_out[sel, slot].float() * w[..., None]).sum(1).to(dtype)
-
-        me = probs.mean(0)
-        ce = F.one_hot(sel, E).sum(1).float().mean(0) / K
-        aux = (me * ce).sum() * E
-        out = out[:T].reshape(B, S, D)
-        if cfg.n_shared_experts:
-            out = out + self.shared(x.to(dtype), cfg.act, dtype)
-        return out, aux

@@ -15,7 +15,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...kernels.rwkv6 import ops
-from ...kernels.rwkv6.chunked import wkv6_decode_step
+from ...sharding.logical import (Spec, local_params, local_region, mesh_of,
+                                 placements, row_parallel, rule,
+                                 sanitize_spec, shard, split_axis)
 from .common import weight
 
 _MIX = ("r", "k", "v", "g", "w")
@@ -64,10 +66,35 @@ class TimeMix(nn.Module):
         prefill/decode, else None)."""
         cfg = self.cfg
         B, S, D = x.shape
-        H, K = cfg.rwkv_heads, cfg.rwkv_head_dim
         x = x.to(dtype)
         last = (torch.zeros((B, D), dtype=dtype, device=x.device)
                 if state is None else state["shift_t"])
+        s0 = None if state is None else state["wkv"]
+        mesh = mesh_of(x, self.wr)
+        if mesh is None:
+            y, g, new_wkv = self._mix(x, last, s0, mode, dtype)
+        else:
+            y, g, new_wkv = self._mix_on_mesh(mesh, x, last, s0, mode, dtype)
+        # rms over D, then a plain scale by ln_x (not an offset from 1)
+        y32 = y.reshape(B, S, D).float()
+        y = (y32 * torch.rsqrt((y32 * y32).mean(-1, keepdim=True)
+                               + cfg.norm_eps) * self.ln_x).to(dtype)
+        if mesh is None:
+            out = self._out(y, g, dtype)
+        else:
+            out = self._out_on_mesh(mesh, y, g, dtype)
+        new_state = None
+        if mode in ("prefill", "decode"):
+            sdt = x.dtype if state is None else state["shift_t"].dtype
+            new_state = {"shift_t": x[:, -1].to(sdt), "wkv": new_wkv}
+        return shard(out, "act_btd"), new_state
+
+    def _mix(self, x, last, s0, mode, dtype):
+        """The token-shift mixes, the projections and the WKV → (y (B, S,
+        H, K), g (B, S, H·K), new WKV state); the heads from ``u`` (a
+        shard's on a mesh)."""
+        B, S, D = x.shape
+        H, K = self.u.shape
         dxp = token_shift(x, last) - x
         # data-dependent mixing (LoRA over the 5 mixes)
         lora = torch.tanh((x + 0.5 * dxp) @ self.mix_A.to(dtype))
@@ -87,23 +114,60 @@ class TimeMix(nn.Module):
 
         rh, kh, vh, wh = (t.reshape(B, S, H, K) for t in (r, k, v, w))
         if mode == "decode":
-            y, new_wkv = wkv6_decode_step(state["wkv"], rh[:, 0], kh[:, 0],
-                                          vh[:, 0], wh[:, 0], self.u)
+            y, new_wkv = ops.wkv6_step(s0, rh[:, 0], kh[:, 0], vh[:, 0],
+                                       wh[:, 0], self.u)
             y = y[:, None]
         else:
-            s0 = None if state is None else state["wkv"]
             y, new_wkv = ops.wkv6(rh, kh, vh, wh, self.u, s0=s0,
-                                  chunk=cfg.ssm_chunk)
-        # rms over D, then a plain scale by ln_x (not an offset from 1)
-        y32 = y.reshape(B, S, D).float()
-        y = (y32 * torch.rsqrt((y32 * y32).mean(-1, keepdim=True)
-                               + cfg.norm_eps) * self.ln_x).to(dtype)
-        out = (y * F.silu(g)) @ self.wo.to(dtype)
-        new_state = None
-        if mode in ("prefill", "decode"):
-            sdt = x.dtype if state is None else state["shift_t"].dtype
-            new_state = {"shift_t": x[:, -1].to(sdt), "wkv": new_wkv}
-        return out, new_state
+                                  chunk=self.cfg.ssm_chunk)
+        return y, g, new_wkv
+
+    def _out(self, y, g, dtype):
+        return (y * F.silu(g)) @ self.wo.to(dtype)
+
+    def _mix_on_mesh(self, mesh, x, last, s0, mode, dtype):
+        """``_mix`` in a ``local_map`` region (PERF.md §3): x and the
+        shifted token with their batch over the data axes and whole on
+        ``model``; the heads split over ``model`` when it divides them
+        (the projections' columns, w0, decay_B's columns, u), the mixes
+        and decay_A whole."""
+        H = self.u.shape[0]
+        hs = split_axis(mesh, H)
+        sx = sanitize_spec(Spec(rule("act_btd", mesh)[0], None, None),
+                           x.shape, mesh)
+        dp = sx[0]
+        cols = Spec(None, hs)
+        names = ("mu_base", "mix_A", "mix_B", "wr", "wk", "wv", "wg", "w0",
+                 "decay_A", "decay_B", "u")
+        specs = (Spec(None, None), Spec(None, None), Spec(None, None, None),
+                 cols, cols, cols, cols, Spec(hs), Spec(None, None), cols,
+                 Spec(hs, None))
+
+        def local(xl, ll, sl, *ws):
+            with local_params(self, **dict(zip(names, ws))):
+                return self._mix(xl, ll, sl, mode, dtype)
+        return local_region(
+            local, mesh, (x, last, s0, *(self._parameters[n] for n in names)),
+            (sx, Spec(dp, None),
+             None if s0 is None else Spec(dp, hs, None, None), *specs),
+            (placements(Spec(dp, None, hs, None), mesh),
+             placements(Spec(dp, None, hs), mesh),
+             placements(Spec(dp, hs, None, None), mesh)))
+
+    def _out_on_mesh(self, mesh, y, g, dtype):
+        """``_out`` in a region: y and g split over the heads as
+        ``_mix_on_mesh`` left them, wo's rows alike; the output a partial
+        sum over the split."""
+        hs = split_axis(mesh, self.u.shape[0])
+        sy = sanitize_spec(Spec(rule("act_btd", mesh)[0], None, hs),
+                           y.shape, mesh)
+
+        def local(yl, gl, wo):
+            with local_params(self, wo=wo):
+                return self._out(yl, gl, dtype)
+        return local_region(local, mesh, (y, g, self.wo),
+                            (sy, sy, Spec(hs, None)),
+                            row_parallel(Spec(sy[0], None, None), mesh, hs))
 
 
 class ChannelMix(nn.Module):
@@ -124,15 +188,39 @@ class ChannelMix(nn.Module):
         x = x.to(dtype)
         last = (torch.zeros((B, D), dtype=dtype, device=x.device)
                 if state is None else state["shift_c"])
+        mesh = mesh_of(x, self.ck)
+        out = (self._mix(x, last, dtype) if mesh is None else
+               self._on_mesh(mesh, x, last, dtype))
+        new_state = None
+        if mode in ("prefill", "decode"):
+            sdt = x.dtype if state is None else state["shift_c"].dtype
+            new_state = {"shift_c": x[:, -1].to(sdt)}
+        return shard(out, "act_btd"), new_state
+
+    def _mix(self, x, last, dtype):
         dxp = token_shift(x, last) - x
         mu = self.cmix_mu.to(dtype)
         xk = x + dxp * mu[0]
         xr = x + dxp * mu[1]
         k = torch.square(torch.relu(xk @ self.ck.to(dtype)))
-        v = k @ self.cv.to(dtype)
+        v = shard(k, "act_btf") @ self.cv.to(dtype)
         r = torch.sigmoid(xr @ self.cr.to(dtype))
-        new_state = None
-        if mode in ("prefill", "decode"):
-            sdt = x.dtype if state is None else state["shift_c"].dtype
-            new_state = {"shift_c": x[:, -1].to(sdt)}
-        return r * v, new_state
+        return r * v
+
+    def _on_mesh(self, mesh, x, last, dtype):
+        """``_mix`` in a ``local_map`` region (PERF.md §3): x with its
+        batch over the data axes and whole on ``model``, the hidden width
+        split over ``model`` (ck by columns, cv by rows: JAX's
+        ``act_btf``), cr **whole**; r · (k · cv) is linear in the split,
+        so the output is a partial sum over it."""
+        fs = split_axis(mesh, self.ck.shape[1])
+        sx = sanitize_spec(Spec(rule("act_btd", mesh)[0], None, None),
+                           x.shape, mesh)
+
+        def local(xl, ll, mu, ck, cv, cr):
+            with local_params(self, cmix_mu=mu, ck=ck, cv=cv, cr=cr):
+                return self._mix(xl, ll, dtype)
+        return local_region(
+            local, mesh, (x, last, self.cmix_mu, self.ck, self.cv, self.cr),
+            (sx, Spec(sx[0], None), Spec(None, None), Spec(None, fs),
+             Spec(fs, None), Spec(None, None)), row_parallel(sx, mesh, fs))

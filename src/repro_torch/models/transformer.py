@@ -22,7 +22,9 @@ the compute dtype ``cfg.dtype``, frozen: the JAX package keeps them in
 A model built for training (``init_model(..., train=True)``) stores them
 in ``param_dtype`` (f32 masters, which AdamW updates, as in JAX) and
 casts at use; its weights require grad. Norm scales, and the RWKV and
-Mamba-2 weights the JAX layers compute with in f32, stay f32 in both.
+Mamba-2 weights the JAX layers compute with in f32, stay f32 for serving;
+for training every leaf is in ``param_dtype``, as in JAX (bf16 for
+mixtral's and deepseek-v2's, norm scales included).
 In ``mode="train"`` with ``cfg.remat`` each block is rematerialised
 under autograd (``kernels.remat``), as JAX's scan body is.
 ``qk_norm``, which no config sets, raises ``NotImplementedError`` until
@@ -37,6 +39,9 @@ from torch import nn
 
 from ..device import resolve_device
 from ..kernels import remat
+from ..sharding.logical import (Spec, gathered, local_region, mesh_of,
+                                placements, row_parallel, rule,
+                                sanitize_spec, shard, spec_of, split_axis)
 from .config import ModelConfig
 from .layers.attention import Attention
 from .layers.common import dense_init, rms_norm, softcap, weight
@@ -202,7 +207,18 @@ class SharedAttention(nn.Module):
         xc = xc + a
         h = rms_norm(xc, self.ln2, cfg.norm_eps, plus_one=True)
         xc = xc + self.mlp(h, cfg.act, dtype)
-        return x + xc.to(dtype) @ self.down.to(dtype)
+        mesh = mesh_of(xc, self.down)
+        if mesh is None:
+            return x + xc.to(dtype) @ self.down.to(dtype)
+        # a row-parallel product (PERF.md §3): xc's width and down's rows
+        # split over ``model``, the output a partial sum
+        ws = split_axis(mesh, self.down.shape[0])
+        sx = sanitize_spec(Spec(rule("act_btd", mesh)[0], None, ws),
+                           xc.shape, mesh)
+        return x + shard(local_region(
+            lambda a, w: a.to(dtype) @ w.to(dtype), mesh, (xc, self.down),
+            (sx, Spec(ws, None)),
+            row_parallel(Spec(sx[0], None, None), mesh, ws)), "act_btd")
 
 
 class Transformer(nn.Module):
@@ -241,6 +257,12 @@ class Transformer(nn.Module):
         self.blocks = nn.ModuleList(blocks)
         if cfg.family == "hybrid":
             self.shared = SharedAttention(cfg, wdt, device)
+        if train:   # JAX keeps every leaf in param_dtype
+            for mod in self.modules():
+                for k, p in mod._parameters.items():
+                    if p.dtype != wdt:
+                        mod._parameters[k] = weight(*p.shape, dtype=wdt,
+                                                    device=device)
 
     def forward(self, batch, *, mode="train", caches=None, pos=None,
                 output="logits"):
@@ -254,7 +276,7 @@ class Transformer(nn.Module):
         encoder runs in ``mode="train"`` only: the JAX package's prefill
         of an encoder, which has no cache, fails in ``attn_apply``, and an
         encoder has no decode."""
-        cfg, dtype = self.cfg, self.dtype
+        cfg = self.cfg
         if cfg.is_encoder and mode != "train":
             raise ValueError(
                 f"{cfg.name} is an encoder: it runs through forward(mode="
@@ -262,6 +284,11 @@ class Transformer(nn.Module):
         if output not in ("logits", "hidden"):
             raise ValueError(f"output must be 'logits' or 'hidden', got "
                              f"{output!r}")
+        with gathered(self, recurse=False):
+            return self._forward(batch, mode, caches, pos, output)
+
+    def _forward(self, batch, mode, caches, pos, output):
+        cfg, dtype = self.cfg, self.dtype
         x, positions, _ = embed_inputs(self, batch, mode, pos)
         aux = torch.zeros((), device=x.device)
         if cfg.family == "ssm":
@@ -280,14 +307,19 @@ class Transformer(nn.Module):
             pad = torch.arange(cfg.padded_vocab,
                                device=logits.device) >= cfg.vocab_size
             logits = logits.masked_fill(pad, -1e9)
-        return logits, caches
+        return shard(logits, "logits"), caches
 
     def _run(self, mode, fn, *args):
-        """``fn(*args)``, one block: rematerialised under autograd in
-        ``mode="train"`` with ``cfg.remat``."""
+        """``fn(*args)``, one block (``fn.func``): rematerialised under
+        autograd in ``mode="train"`` with ``cfg.remat``. On a mesh the
+        block's parameters are gathered over the FSDP axes for the call
+        (again in the recompute), as XLA gathers them per layer."""
+        def call(*a):
+            with gathered(fn.func):
+                return fn(*a)
         if self.cfg.remat and mode == "train":
-            return remat(fn, *args)
-        return fn(*args)
+            return remat(call, *args)
+        return call(*args)
 
     def _attention_blocks(self, x, positions, caches, mode, pos):
         """→ (x, the MoE blocks' summed aux loss)."""
@@ -350,19 +382,20 @@ def embed_inputs(model: Transformer, batch: dict, mode: str, pos=None):
     patches). Decode's one position is ``pos``."""
     cfg, dtype = model.cfg, model.dtype
     if cfg.frontend == "audio_stub":
-        x = batch["frames"].to(dtype) @ model.frame_proj.to(dtype)
+        x = _frontend(batch["frames"], model.frame_proj, dtype)
         if "mask" in batch:
             x = torch.where(batch["mask"][..., None],
                             model.mask_emb.to(dtype), x)
-        return x, torch.arange(x.shape[1], device=x.device)[None, :], None
+        return (shard(x, "act_btd"),
+                torch.arange(x.shape[1], device=x.device)[None, :], None)
     tok = batch["tokens"]
     B, S = tok.shape
-    x = model.embed[tok].to(dtype)
+    x = _embed(model.embed, tok).to(dtype)
     if cfg.emb_scale_by_sqrt_dim:       # √D rounded to dtype, as in JAX
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dtype)
     loss_mask = None
     if cfg.frontend == "vision_stub" and "patches" in batch:
-        pe = batch["patches"].to(dtype) @ model.patch_proj.to(dtype)
+        pe = _frontend(batch["patches"], model.patch_proj, dtype)
         x = torch.cat([pe, x], dim=1)
         Np = pe.shape[1]
         loss_mask = torch.cat(
@@ -373,7 +406,57 @@ def embed_inputs(model: Transformer, batch: dict, mode: str, pos=None):
         positions = torch.full((B, 1), pos, device=x.device)
     else:
         positions = torch.arange(S, device=x.device)[None, :]
-    return x, positions, loss_mask
+    return shard(x, "act_btd"), positions, loss_mask
+
+
+def _frontend(x, w, dtype):
+    """A frontend's projection ``x @ w``. On a mesh in a ``local_map``
+    region (PERF.md §3): x with its batch over the data axes, w's
+    columns split over ``model``, the output split alike (DTensor's own
+    strategy fails on the gradient's strided shards)."""
+    mesh = mesh_of(x, w)
+    if mesh is None:
+        return x.to(dtype) @ w.to(dtype)
+    cs = split_axis(mesh, w.shape[1])
+    sx = sanitize_spec(Spec(rule("act_btd", mesh)[0], None, None), x.shape,
+                       mesh)
+    return local_region(lambda a, b: a.to(dtype) @ b.to(dtype), mesh,
+                        (x, w), (sx, Spec(None, cs)),
+                        placements(Spec(sx[0], None, cs), mesh))
+
+
+def _embed(table, tok):
+    """``table[tok]``. On a mesh (the table's vocab rows split over
+    ``model``, gathered over the data axes) each rank looks up the tokens
+    its rows hold and zeros elsewhere, in a ``local_map`` region (PERF.md
+    §3); the result is a partial sum over ``model`` (vocab-parallel
+    embedding, as XLA lowers JAX's gather)."""
+    mesh = mesh_of(table, tok)
+    if mesh is None:
+        return table[tok]
+    from torch.distributed.tensor import Partial
+
+    st = spec_of(table)
+    stok = sanitize_spec(rule("act_btd", mesh)[:2], tok.shape, mesh)
+    rows = () if st[0] is None else (
+        st[0] if isinstance(st[0], tuple) else (st[0],))
+    names = list(mesh.mesh_dim_names)
+    out_pl = [Partial() if n in rows else p for n, p in
+              zip(names, placements(Spec(*stok, None), mesh))]
+
+    def local(t, ids):
+        coord = mesh.get_coordinate() or [0] * len(names)
+        r = 0
+        for a in rows:
+            i = names.index(a)
+            r = r * mesh.shape[i] + coord[i]
+        v0 = r * t.shape[0]
+        hit = (ids >= v0) & (ids < v0 + t.shape[0])
+        x = t[torch.where(hit, ids - v0, 0)]
+        return torch.where(hit[..., None], x, torch.zeros((), dtype=x.dtype,
+                                                          device=x.device))
+    return local_region(local, mesh, (table, tok),
+                        (Spec(st[0], None), stok), out_pl)
 
 
 def _layer_cache(cfg: ModelConfig, caches: dict, i: int) -> dict:

@@ -104,13 +104,15 @@ def _host_values(metrics) -> tuple[float, float]:
 class FaultTolerantLoop:
     """Runs ``step_fn(state, batch) -> (state, metrics)`` over
     ``pipeline.at(step)``. ``device`` is where a restored checkpoint's
-    tensors go."""
+    tensors go; ``restore_kw`` more arguments of ``restore`` (a mesh
+    trainer's placements and mesh)."""
 
     def __init__(self, step_fn: Callable, pipeline, checkpointer=None,
                  ckpt_every: int = 50, max_retries: int = 2,
                  max_bad_steps: int = 5,
                  straggler: StragglerMonitor | None = None,
-                 log: Callable[[str], None] = print, device=None):
+                 log: Callable[[str], None] = print, device=None,
+                 restore_kw: dict | None = None):
         self.step_fn = step_fn
         self.pipeline = pipeline
         self.ckpt = checkpointer
@@ -120,12 +122,13 @@ class FaultTolerantLoop:
         self.monitor = straggler or StragglerMonitor()
         self.log = log
         self.device = device
+        self.restore_kw = restore_kw or {}
 
     def _can_restore(self) -> bool:
         return self.ckpt is not None and self.ckpt.latest() is not None
 
     def _restore(self):
-        state, _ = self.ckpt.restore(device=self.device)
+        state, _ = self.ckpt.restore(device=self.device, **self.restore_kw)
         return state
 
     def run(self, state, start_step: int, n_steps: int) -> tuple:

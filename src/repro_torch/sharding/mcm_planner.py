@@ -21,9 +21,9 @@ This planner:
      *non-uniform-partition headroom* the GA finds over equal shards
      (reported, not executed).
 
-The JAX package also lowers a plan through its XLA dryrun
-(``to_dryrun_knobs``, ``launch/dryrun.execute_plan``); the port has no
-XLA SPMD, so that step has no counterpart here.
+``PlanResult.to_dryrun_knobs`` turns a plan into the dry run's knobs,
+and ``launch.dryrun.execute_plan`` traces and costs it on a fake mesh, or
+runs it on a real one.
 """
 from __future__ import annotations
 
@@ -145,6 +145,13 @@ class PlanResult:
     @property
     def modeled_speedup(self) -> float:
         return self.baseline_latency / self.optimized_latency
+
+    def to_dryrun_knobs(self) -> dict:
+        """The executable subset of the plan, as ``launch/dryrun``
+        ``lower_cell``/``run_cell`` keyword knobs: what
+        :func:`repro_torch.launch.dryrun.execute_plan` runs."""
+        return {"shard_residual": bool(self.knobs["shard_residual"]),
+                "accum": int(self.knobs["accum_steps"])}
 
 
 def plan(cfg, mesh_shape: tuple[int, int], seq_len: int, batch: int,

@@ -15,6 +15,8 @@ from typing import Callable
 
 import torch
 
+from ..sharding.logical import is_dtensor
+
 
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
@@ -70,10 +72,11 @@ def global_norm(tree) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(leaves)))
 
 
-def clip_by_global_norm(tree, max_norm: float):
+def clip_by_global_norm(tree, max_norm: float, norm_fn=None):
     """(the tree scaled by min(1, max_norm / norm), each leaf in its own
-    dtype; norm)."""
-    norm = global_norm(tree)
+    dtype; norm). ``norm_fn`` (default ``global_norm``) computes the
+    norm."""
+    norm = (norm_fn or global_norm)(tree)
     scale = torch.clamp(max_norm / torch.clamp_min(norm, 1e-9), max=1.0)
     return tree_map(lambda g: (g.float() * scale).to(g.dtype), tree), norm
 
@@ -83,26 +86,41 @@ def adamw(lr: float | Callable = 3e-4, b1: float = 0.9, b2: float = 0.95,
           clip_norm: float | None = 1.0,
           m_dtype=torch.float32, v_dtype=torch.float32) -> Optimizer:
     """``m_dtype=torch.bfloat16`` halves first-moment memory. No decay on
-    tensors of rank < 2 (norms, biases); bias correction from the
-    post-increment ``count``, as in JAX."""
+    tensors of rank < 2 (norms, biases), as JAX's ``p.ndim >= 2``; bias
+    correction from the post-increment ``count``, as in JAX.
+
+    The rank the decay rule reads is the leaf's own unless ``update`` is
+    given ``ranks`` {name: rank} for a flat dict of parameters: the
+    training step passes the ranks of the JAX leaves
+    (``models.convert.jax_ranks``), which are stacked over the layers, so
+    every block's norm scales (rank 2 in JAX) decay and ``final_norm``
+    does not, as in JAX."""
     lr_fn = lr if callable(lr) else (lambda _: lr)
 
     def init(params):
-        return {"m": tree_map(lambda p: torch.zeros(
-                    p.shape, dtype=m_dtype, device=p.device), params),
-                "v": tree_map(lambda p: torch.zeros(
-                    p.shape, dtype=v_dtype, device=p.device), params),
+        # zeros_like: on a mesh the moments take their parameter's layout
+        return {"m": tree_map(lambda p: torch.zeros_like(
+                    p, dtype=m_dtype, requires_grad=False), params),
+                "v": tree_map(lambda p: torch.zeros_like(
+                    p, dtype=v_dtype, requires_grad=False), params),
                 "count": torch.zeros((), dtype=torch.int32,
                                      device=tree_leaves(params)[0].device)}
 
-    def update(grads, state, params):
+    def update(grads, state, params, ranks: dict | None = None):
         """(grads, opt state, params) trees of the same structure →
         (new params, new opt state, {"grad_norm", "lr"}). Nothing is
-        updated in place."""
+        updated in place. ``ranks``: see ``adamw``. On DTensors the
+        update runs on each rank's local shards (``_local_update``)."""
+        if is_dtensor(tree_leaves(params)[0]):
+            return _local_update(update_tensors, grads, state, params,
+                                 ranks)
+        return update_tensors(grads, state, params, ranks)
+
+    def update_tensors(grads, state, params, ranks, norm_fn=None):
         if clip_norm is not None:
-            grads, gnorm = clip_by_global_norm(grads, clip_norm)
+            grads, gnorm = clip_by_global_norm(grads, clip_norm, norm_fn)
         else:
-            gnorm = global_norm(grads)
+            gnorm = (norm_fn or global_norm)(grads)
         count = state["count"] + 1
         b1c = 1.0 - b1 ** count.float()
         b2c = 1.0 - b2 ** count.float()
@@ -128,7 +146,9 @@ def adamw(lr: float | Callable = 3e-4, b1: float = 0.9, b2: float = 0.95,
         torch._foreach_div_(delta, den)
         del den
         if weight_decay:
-            decay = [i for i, x in enumerate(p) if x.dim() >= 2]
+            rank = ([ranks[n] for n in sorted(params)] if ranks is not None
+                    else [x.dim() for x in p])
+            decay = [i for i, r in enumerate(rank) if r >= 2]
             torch._foreach_add_([delta[i] for i in decay], torch._foreach_mul(
                 [p32[i] for i in decay], weight_decay))
         torch._foreach_mul_(delta, step_lr)
@@ -142,3 +162,51 @@ def adamw(lr: float | Callable = 3e-4, b1: float = 0.9, b2: float = 0.95,
                 {"grad_norm": gnorm, "lr": step_lr})
 
     return Optimizer(init=init, update=update)
+
+
+def _local_update(update, grads, state, params, ranks):
+    """AdamW on a mesh: every moment has its parameter's placements (ZeRO
+    by construction) and each gradient is brought to them (a partial
+    gradient is reduced here), so the update is elementwise on the local
+    shards and runs as ``torch._foreach_*`` on plain tensors. The global
+    norm adds each rank's local squares, each divided by the number of
+    ranks that replicate that tensor, in one all-reduce over the world
+    (the mesh spans it)."""
+    import torch.distributed._functional_collectives as fc
+    from torch.distributed.tensor import DTensor, Replicate
+
+    p = tree_leaves(params)
+    g = [x.redistribute(y.device_mesh, y.placements)
+         for x, y in zip(tree_leaves(grads), p)]
+    reps = []
+    for y in p:
+        n = 1
+        for size, pl in zip(tuple(y.device_mesh.shape), y.placements):
+            if isinstance(pl, Replicate):
+                n *= size
+        reps.append(float(n))
+
+    def norm_fn(tree):
+        sq = torch.stack([x.float().pow(2).sum() / r for x, r in
+                          zip(tree_leaves(tree), reps)]).sum()
+        return torch.sqrt(fc.all_reduce(sq, "sum", torch.distributed.group
+                                        .WORLD))
+
+    def local(tree):
+        return tree_map(lambda x: x.to_local(), tree)
+    new_p, new_state, metrics = update(
+        tree_unflatten(params, [x.to_local() for x in g]),
+        {**state, "m": local(state["m"]), "v": local(state["v"]),
+         "count": (state["count"].to_local() if is_dtensor(state["count"])
+                   else state["count"])},
+        local(params), ranks, norm_fn)
+
+    def wrap(tree):
+        return tree_unflatten(params, [
+            DTensor.from_local(x, y.device_mesh, y.placements,
+                               run_check=False, shape=y.shape,
+                               stride=y.stride())
+            for x, y in zip(tree_leaves(tree), p)])
+    new_state = {**new_state, "m": wrap(new_state["m"]),
+                 "v": wrap(new_state["v"])}
+    return wrap(new_p), new_state, metrics

@@ -18,8 +18,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..models.convert import jax_ranks
 from ..models.loss import fused_lm_loss
 from ..models.transformer import Transformer, forward
+from ..sharding.logical import local_region, mesh_of, placements, spec_of
 from .optimizer import Optimizer, tree_map
 
 TrainState = dict  # {"params": {name: tensor}, "opt": {...}, "step": i32}
@@ -56,7 +58,8 @@ def to_device(batch: dict, device) -> dict:
     """A numpy batch on ``device``: integer arrays as int64 (token and
     label indices), the rest as they are."""
     def put(a):
-        t = torch.as_tensor(np.asarray(a))
+        t = a if isinstance(a, torch.Tensor) else torch.as_tensor(
+            np.asarray(a))
         if not t.is_floating_point() and t.dtype != torch.bool:
             t = t.long()
         return t.to(device, non_blocking=True)
@@ -97,6 +100,27 @@ def grads_of(cfg, params, batch):
             {k: v.detach() for k, v in metrics.items()})
 
 
+def microbatch(v, i: int, n: int):
+    """Microbatch i of n: rows i·b..(i+1)·b − 1 of the batch, b = rows / n.
+    On a mesh, where the batch is split over the data axes, the same rows
+    of each rank's own shard, in a ``local_map`` region (PERF.md §3), so
+    no rank gathers the batch; the microbatches differ from the
+    one-device ones but cover the same rows."""
+    mesh = mesh_of(v)
+    if mesh is None:
+        b = v.shape[0] // n
+        return v[i * b:(i + 1) * b]
+    spec = spec_of(v)
+
+    def rows(t):
+        if t.shape[0] % n:
+            raise ValueError(f"a rank's {t.shape[0]} rows do not split into "
+                             f"{n} microbatches")
+        b = t.shape[0] // n
+        return t[i * b:(i + 1) * b]
+    return local_region(rows, mesh, (v,), (spec,), placements(spec, mesh))
+
+
 def make_train_step(cfg, optimizer: Optimizer, accum_steps: int = 1,
                     accum_dtype=torch.float32):
     """Returns ``train_step(state, batch) -> (state, metrics)``; the batch
@@ -106,7 +130,8 @@ def make_train_step(cfg, optimizer: Optimizer, accum_steps: int = 1,
     ``accum_steps > 1`` splits the batch into microbatches run one after
     another, their gradients summed in ``accum_dtype`` and averaged:
     activation memory of one microbatch. Metrics stay 0-d device
-    tensors: reading them is the caller's one host sync.
+    tensors: reading them is the caller's one host sync. Weight decay
+    reads the JAX leaves' ranks (``models.convert.jax_ranks``).
     """
     def train_step(state: TrainState, batch: dict):
         params = state["params"]
@@ -115,14 +140,13 @@ def make_train_step(cfg, optimizer: Optimizer, accum_steps: int = 1,
         if accum_steps == 1:
             grads, metrics = grads_of(cfg, params, batch)
         else:
-            mb = next(iter(batch.values())).shape[0] // accum_steps
-            grads = {n: torch.zeros(p.shape, dtype=accum_dtype,
-                                    device=device)
+            grads = {n: torch.zeros_like(p, dtype=accum_dtype)
                      for n, p in params.items()}
             metrics = {k: torch.zeros((), device=device)
                        for k in ("loss", "aux")}
             for i in range(accum_steps):
-                micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+                micro = {k: microbatch(v, i, accum_steps)
+                         for k, v in batch.items()}
                 g, m = grads_of(cfg, params, micro)
                 torch._foreach_add_(list(grads.values()), [
                     g[n].to(accum_dtype) for n in grads])
@@ -132,7 +156,7 @@ def make_train_step(cfg, optimizer: Optimizer, accum_steps: int = 1,
 
         with torch.no_grad():
             new_params, new_opt, opt_metrics = optimizer.update(
-                grads, state["opt"], params)
+                grads, state["opt"], params, ranks=jax_ranks(cfg, params))
         new_state = {"params": new_params, "opt": new_opt,
                      "step": state["step"] + 1}
         return new_state, {**metrics, **opt_metrics}

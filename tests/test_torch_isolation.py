@@ -44,7 +44,12 @@ def test_import_leaves_jax_unloaded():
             "repro_torch.train.train_step, repro_torch.train.optimizer, "
             "repro_torch.checkpoint, repro_torch.data, "
             "repro_torch.data.pipeline, repro_torch.models.loss, "
-            "repro_torch.launch.train; "
+            "repro_torch.launch.train, repro_torch.launch.dryrun, "
+            "repro_torch.launch.mesh, repro_torch.launch.specs, "
+            "repro_torch.launch.policies, repro_torch.sharding.logical, "
+            "repro_torch.sharding.partition_specs, "
+            "repro_torch.roofline.analysis, "
+            "repro_torch.train.grad_compress; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

@@ -22,7 +22,10 @@ times, the optimisation server's worker launching kernels, and kernel
 libraries loaded from two threads; the flash, WKV-6 and SSD
 ``autograd.Function``s at their serve shapes in both dtypes (gradients
 equal to autograd of the plain version, an unused final state), and
-the raw wrappers refusing inputs that require grad. (Every
+the raw wrappers refusing inputs that require grad; flash, WKV-6 and
+SSD called on DTensors over the card as a (1, 1) NCCL mesh (their
+``local_map`` region), bit for bit the call on plain tensors, one launch
+each. (Every
 kernel against its plain version at every variant, in both dtypes, is also
 ``chip_smoke.py``'s kernel phase.) The ``cuda``-marked tests
 need an NVIDIA Hopper card and nvcc and skip elsewhere. Imports no JAX,
@@ -1070,3 +1073,87 @@ def test_raw_wrappers_refuse_grad_under_grad_mode(cuda):
             call()
         with torch.no_grad():
             call()
+
+
+@pytest.fixture(scope="module")
+def mesh11():
+    """The card as a (1, 1) mesh over a 1-rank NCCL world."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_debug_mesh
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    try:
+        yield make_debug_mesh(1)
+    finally:
+        dist.destroy_process_group()
+
+
+def _on_mesh(mesh, *tensors):
+    from torch.distributed.tensor import Replicate, distribute_tensor
+    return [None if t is None else
+            distribute_tensor(t, mesh, [Replicate(), Replicate()])
+            for t in tensors]
+
+
+def _same_on_mesh(mesh, op, counter, tensors, kw):
+    """``op`` on DTensors over the (1, 1) mesh (its local_map region)
+    equals ``op`` on the plain tensors bit for bit, and each call
+    launches the kernel once."""
+    want = op(*tensors, **kw)
+    n = counter.launches
+    got = op(*_on_mesh(mesh, *tensors), **kw)
+    assert counter.launches == n + 1
+    want = want if isinstance(want, tuple) else (want,)
+    got = got if isinstance(got, tuple) else (got,)
+    for a, b in zip(got, want):
+        assert type(a).__name__ == "DTensor"
+        assert torch.equal(a.to_local(), b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_flash_on_a_one_rank_mesh(cuda, mesh11, dtype):
+    g = torch.Generator(device=cuda).manual_seed(21)
+    q, k, v = (torch.randn(2, 256, n, 64, generator=g, device=cuda)
+               .to(dtype) for n in (15, 5, 5))           # smollm's heads
+    _same_on_mesh(mesh11, flash_ops.attention, flash_attention, (q, k, v),
+                  dict(causal=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_wkv6_on_a_one_rank_mesh(cuda, mesh11, dtype):
+    g = torch.Generator(device=cuda).manual_seed(22)
+    B, S, H, K = 2, 128, 4, 64
+    r, k, v = (0.5 * torch.randn(B, S, H, K, generator=g, device=cuda)
+               .to(dtype) for _ in range(3))
+    w = torch.exp(-torch.exp(torch.randn(B, S, H, K, generator=g,
+                                         device=cuda) - 2)).to(dtype)
+    u = 0.3 * torch.randn(H, K, generator=g, device=cuda)
+    s0 = 0.3 * torch.randn(B, H, K, K, generator=g, device=cuda)
+    _same_on_mesh(mesh11, wkv_ops.wkv6, wkv6, (r, k, v, w, u, s0), {})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_ssd_on_a_one_rank_mesh(cuda, mesh11, dtype):
+    g = torch.Generator(device=cuda).manual_seed(23)
+    B, S, H, P, G, N = 2, 128, 8, 64, 1, 64
+    x = torch.randn(B, S, H, P, generator=g, device=cuda).to(dtype)
+    dt = torch.nn.functional.softplus(
+        torch.randn(B, S, H, generator=g, device=cuda) - 1)
+    a = -torch.exp(0.5 * torch.randn(H, generator=g, device=cuda))
+    Bm, Cm = (torch.randn(B, S, G, N, generator=g, device=cuda).to(dtype)
+              for _ in range(2))
+    D = torch.randn(H, generator=g, device=cuda)
+    h0 = 0.3 * torch.randn(B, H, P, N, generator=g, device=cuda)
+    _same_on_mesh(mesh11, ssd_ops.ssm_scan, ssm_scan,
+                  (x, dt, a, Bm, Cm, D, h0), {})

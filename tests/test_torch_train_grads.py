@@ -28,7 +28,9 @@ from repro.train.train_step import loss_for as jax_loss_for
 from repro.train.train_step import make_train_step as jax_make_train_step
 from repro_torch.configs import get_config
 from repro_torch.data.pipeline import make_pipeline
-from repro_torch.models.convert import from_jax_params, train_state_from_jax
+from repro_torch.models import init_model
+from repro_torch.models.convert import (from_jax_params, jax_leaf_paths,
+                                        jax_ranks, train_state_from_jax)
 from repro_torch.train import adamw, cosine_schedule
 from repro_torch.train.train_step import (grads_of, make_train_step,
                                           to_device)
@@ -195,3 +197,88 @@ def test_adamw_decay_matches_jax_on_one_tree():
                 np.testing.assert_allclose(ts[mom][k].numpy(),
                                            np.asarray(js[mom][k]), rtol=1e-5,
                                            atol=1e-8, err_msg=f"{mom} {k}")
+
+
+def _leaf(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_three_adamw_steps_with_decay_match_jax(arch):
+    """Three AdamW steps with the launchers' weight_decay=0.1 from one JAX
+    ``TrainState``, per arch: the port decays the leaves whose JAX leaf
+    (stacked over the layers) has rank >= 2, so the trajectories agree in
+    every leaf, the blocks' norm scales included."""
+    jcfg, cfg, params, _ = _setup(arch)
+    pipe = make_pipeline(cfg, dict(seq_len=32, global_batch=2), seed=5)
+    kw = dict(weight_decay=0.1, clip_norm=1.0)
+    jopt = jax_adamw(lr=jax_cosine(1e-2, 1, 3), **kw)
+    jstate = jax_init_train_state(jax.tree.map(jnp.asarray, params), jopt)
+    state = train_state_from_jax(cfg, jax.tree.map(np.asarray, jstate))
+    jstep = jax.jit(jax_make_train_step(jcfg, jopt))
+    step = make_train_step(cfg, adamw(lr=cosine_schedule(1e-2, 1, 3), **kw))
+    for i in range(3):
+        batch = pipe.at(i)
+        jstate, jm = jstep(jstate, {k: jnp.asarray(v)
+                                    for k, v in batch.items()})
+        state, m = step(state, batch)
+        for k in ("loss", "grad_norm", "lr"):
+            np.testing.assert_allclose(m[k].item(), float(jm[k]), rtol=RTOL,
+                                       err_msg=f"step {i} {k}")
+    want = from_jax_params(cfg, jax.tree.map(np.asarray, jstate["params"]),
+                           torch.float32)
+    for name, w in want.items():
+        assert_adam_close(state["params"][name], w, f"params {name}",
+                          lr=1e-2)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_adamw_decay_set_matches_jax(arch):
+    """Leaf by leaf: the port's decay set is JAX's ``p.ndim >= 2`` on the
+    JAX leaf. With zero gradients Adam's step is 0, so an update moves
+    exactly the decayed leaves, each by lr·wd·p."""
+    jcfg = jax_get_config(arch, reduced=True)
+    cfg = get_config(arch, reduced=True)
+    shapes = jax.eval_shape(lambda k: jax_init_model(jcfg, k),
+                            jax.random.PRNGKey(0))
+    params = dict(init_model(cfg, seed=0, device="cpu",
+                             train=True).named_parameters())
+    ranks = jax_ranks(cfg, params)
+    for name, (path, _) in jax_leaf_paths(cfg).items():
+        assert ranks[name] == _leaf(shapes, path).ndim, name
+    opt = adamw(lr=0.5, weight_decay=0.1, clip_norm=None)
+    gen = torch.Generator().manual_seed(0)
+    params = {n: torch.randn(p.shape, generator=gen)
+              for n, p in params.items()}
+    new, _, _ = opt.update({n: torch.zeros_like(p) for n, p in
+                            params.items()}, opt.init(params), params,
+                           ranks=ranks)
+    decayed = {n for n, p in params.items()
+               if not torch.equal(new[n], p)}
+    want = {n for n, (path, _) in jax_leaf_paths(cfg).items()
+            if _leaf(shapes, path).ndim >= 2}
+    assert decayed == want
+    for n in want:
+        torch.testing.assert_close(new[n], params[n] * (1 - 0.05),
+                                   rtol=1e-6, atol=0)
+    assert "final_norm" not in decayed
+    # the blocks' (D,) norm scales, stacked to rank 2 in JAX
+    assert any(params[n].dim() == 1 for n in decayed)
+
+
+@pytest.mark.parametrize("arch", ("mixtral-8x22b", "deepseek-v2-236b"))
+def test_training_leaf_dtypes_match_jax(arch):
+    """A bf16 ``param_dtype`` trains every leaf in bf16, as JAX does,
+    norm scales included."""
+    jcfg = jax_get_config(arch, reduced=True)
+    cfg = get_config(arch, reduced=True)
+    assert cfg.param_dtype == "bfloat16"
+    shapes = jax.eval_shape(lambda k: jax_init_model(jcfg, k),
+                            jax.random.PRNGKey(0))
+    params = dict(init_model(cfg, seed=0, device="cpu",
+                             train=True).named_parameters())
+    for name, (path, _) in jax_leaf_paths(cfg).items():
+        want = str(_leaf(shapes, path).dtype)
+        assert str(params[name].dtype) == f"torch.{want}", name
