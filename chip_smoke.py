@@ -26,7 +26,11 @@ Phases, each printing its lines; any failure exits nonzero:
      slice 1 reading slice 0's columns too); the GEMM at the calibration's
      largest size and at zamba2-2.7b's in_proj shape); every kernel, and
      the PyTorch call for the same function where there is one, also as
-     runs of back-to-back calls.
+     runs of back-to-back calls. Flash's query offset: 256 query rows at
+     offsets 320 and 700 of minicpm3-4b's MLA shape and of smollm-360m's,
+     in f32 and bf16, against the plain version at the same offset and
+     bit for bit those rows of the whole call; offset 0 bit for bit the
+     call without it.
   4. calibrate + plan: with every launch count at 0, the full calibration
      pass (profile_kernels() on the card) must launch each kernel once
      per sample and warm-up or timed call, and no other; the profile
@@ -155,14 +159,16 @@ Phases, each printing its lines; any failure exits nonzero:
      the same train step and FaultTolerantLoop: WKV-6 twice a layer and
      step, SSD twice a Mamba-2 layer and flash twice a group.
  12. mesh: the sharded layer (repro_torch.launch.dryrun, the partition
-     rules as DTensor placements). Three dry runs on a fake world of
+     rules as DTensor placements). Four dry runs on a fake world of
      256 or 512 ranks in this process, tensors with shapes and no
      memory, depth cut: smollm-360m train_4k on (16, 16) (2 of 32
      layers), deepseek-v2-236b train_4k on (2, 16, 16) (its dense layer
      and one MoE layer, accumulation 1 where the policy has 8) and
      minicpm3-4b prefill_32k with its perf_knobs (2 of 62 layers, attention
      chunks of 4096: the plain version computes every block, so the
-     FLOPs do not change); per-device memory, FLOPs and collective bytes
+     FLOPs do not change) and hubert-xlarge train_4k at accumulation 2
+     (2 of 48 layers; its frames gathered once a step for the global
+     batch's microbatches); per-device memory, FLOPs and collective bytes
      and the trace's seconds; argument bytes equal to the local shards'
      bytes the specs give. Then the card as a (1, 1) NCCL mesh:
      execute_plan for smollm-360m at full width (2 layers, prefill, seq
@@ -174,7 +180,18 @@ Phases, each printing its lines; any failure exits nonzero:
      seq 512, 3 steps), each loss within MESH_LOSS_RTOL of the meshless
      trainer's and the launch counts equal; compressed_all_reduce_mean
      on the 1-rank group bit for bit dequantize(quantize(g + err)), and a
-     planted fault (err dropped) rejected.
+     planted fault (err dropped) rejected. minicpm3-4b's dry run reads
+     the attn_qchunk rule: its attention FLOPs per device are its batch
+     share's and its rows' of each query chunk (logged beside the cell's
+     record from before the rule was read); and reduced minicpm3-4b's prefill under that
+     rule on the (1, 1) mesh, flash launched once a query chunk at its
+     offset, its logits against the meshless prefill's (f32 and bf16).
+ 13. entry points: launch.plan_mesh (the calibration pass on the card,
+     then every arch planned on a 16x16 grid of cards) and
+     launch.optserve_client (evals under regime and flow, a GA solve, a
+     pipeline through OptServer on the card, then a warm restart served
+     from its store through submit_async: every request a hit, results
+     equal to the cold pass's), each with its launches counted.
 Then one JSON line of kernel numbers, and as the last line
 {"ok": true, "device": {...}}. Without a card it exits 1 and prints no
 result. Imports nothing of JAX.
@@ -281,6 +298,14 @@ DEEPSEEK_MLA_KW = dict(causal=True, scale=192 ** -0.5)
 HUBERT_SHAPE = (4, 1500, 1500, 16, 16, 80, 80)
 HUBERT_KW = dict(causal=False)
 ZOO_BF16_TOL = dict(rtol=1e-2, atol=6e-3)
+# The query offset: a slice of OFFSET_ROWS query rows at each of OFFSETS
+# (a tile boundary and a row inside a tile) attended against all 1024
+# keys, as one rank's rows of a query chunk are on a mesh where
+# attn_qchunk splits them (minicpm3-4b prefill_32k: a chunk of 4096 over
+# model 16 is 256 rows); at MLA_SHAPE and SMOLLM_SHAPE in f32 and bf16,
+# held to the same limits as the full calls there.
+OFFSET_ROWS = 256
+OFFSETS = (320, 700)
 # Planted faults (planted_faults): the last FAULT_ROWS query rows
 # recomputed with a tile of FAULT_TILE keys dropped, or the window one
 # tile too wide. FAULT_TILE is the bf16 kernel's KV tile at head dims over
@@ -800,7 +825,54 @@ def phase_kernels():
         for dtype, tol in tols:
             log("kernels", f"flash_attention {label} prefill shape "
                 + json.dumps(flash_zoo_row(shape, dtype, kw, tol)))
+    flash_offsets()
     return row
+
+
+def flash_offsets():
+    """The kernel with ``q_offset``: a slice of query rows at its
+    positions against the plain version at the same offset, and bit for
+    bit those rows of the whole call (the same rows, attended alone: a
+    key tile the mask hides adds exactly nothing); offset 0 bit for bit
+    the call without it."""
+    from repro_torch.kernels.flash_attention.blockwise import \
+        blockwise_attention
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+
+    for label, shape, kw, tols in (
+            ("minicpm3 MLA", MLA_SHAPE, MLA_KW,
+             ((torch.bfloat16, ZOO_BF16_TOL),
+              (torch.float32, TOL[torch.float32]))),
+            ("smollm", SMOLLM_SHAPE, dict(causal=True),
+             ((torch.bfloat16, SMOLLM_BF16_TOL),
+              (torch.float32, TOL[torch.float32])))):
+        for dtype, tol in tols:
+            q, k, v = rand_qkv(shape, dtype, seed=103)
+            whole = flash_attention(q, k, v, **kw)
+            same = torch.equal(flash_attention(q, k, v, q_offset=0, **kw),
+                               whole)
+            out = {"offset_0_bit_for_bit": same}
+            for off in OFFSETS:
+                qs = q[:, off:off + OFFSET_ROWS]
+                got = flash_attention(qs, k, v, q_offset=off, **kw)
+                want = blockwise_attention(qs, k, v, q_offset=off, **kw)
+                rows = whole[:, off:off + OFFSET_ROWS]
+                out[off] = {
+                    "max_abs_err": (got.float() - want.float()).abs().max()
+                    .item(),
+                    "beyond_rtol": excess(got, want, tol["rtol"]),
+                    "vs_whole_call_max_abs": (got.float() - rows.float())
+                    .abs().max().item(),
+                    "kernel_ms": time_ms(lambda: flash_attention(
+                        qs, k, v, q_offset=off, **kw))}
+                torch.testing.assert_close(got.float(), want.float(), **tol)
+            log("kernels", f"flash_attention q_offset {label} "
+                f"{str(dtype)[6:]} {OFFSET_ROWS} rows of {shape}: "
+                + json.dumps({**out, "limit": tol}))
+            assert same, "q_offset=0 differs from the call without it"
+            assert all(out[off]["vs_whole_call_max_abs"] == 0
+                       for off in OFFSETS), "a slice differs from its rows"
+            del q, k, v, whole
 
 
 def excess(got, want, rtol):
@@ -3966,6 +4038,9 @@ MESH_DRYRUNS = (
     ("deepseek-v2-236b", "train_4k", True, 2, {"accum": 1}),
     ("minicpm3-4b", "prefill_32k", False, 2,
      {"cfg_overrides": {"attn_chunk": 4096}, "perf": True}),
+    # accumulation over the global batch's microbatches, whose frames are
+    # activation-sized: each input gathered once a step
+    ("hubert-xlarge", "train_4k", False, 2, {"accum": 2}),
 )
 # execute_plan's cell on the card, and the mesh trainer's run.
 MESH_PLAN = dict(arch="smollm-360m", layers=2, seq=512, batch=8)
@@ -3976,6 +4051,13 @@ MESH_TRAIN = dict(layers=4, batch=8, seq=512, steps=3)
 MESH_LOSS_RTOL = 1e-4
 # Allocated argument bytes against the specs' prediction.
 MESH_ARG_RTOL = 0.01
+# Reduced minicpm3-4b's prefill on the card's (1, 1) mesh under the
+# attn_qchunk rule (rows of each 32-row query chunk over model, of size 1
+# here: one launch a chunk at its offset), against the meshless prefill
+# (one launch a layer): f32 within QCHUNK_F32_RTOL of max |logit| (the
+# same rows, the same key tiles), bf16 within LOGIT_REL_TOL.
+QCHUNK_PREFILL = dict(batch=4, seq=256)
+QCHUNK_F32_RTOL = 1e-5
 
 
 def _spec_bytes(cfg, kind, shape, mesh, knobs, arch):
@@ -4007,9 +4089,14 @@ def _spec_bytes(cfg, kind, shape, mesh, knobs, arch):
         total += 2 * 4                           # the step and its count
     sd = SHAPE_DEFS[shape]
     B, S = sd["global_batch"], sd["seq_len"]
-    tok = (B, 1 if kind == "decode" else S)
-    total += local(tok, sanitize_spec(data_specs(mesh)["tokens"], tok, mesh),
-                   8)
+    if cfg.frontend == "audio_stub":
+        inputs = [("frames", (B, S, cfg.frontend_dim), 2)]
+        if kind == "train":
+            inputs += [("mask", (B, S), 1), ("labels", (B, S), 8)]
+    else:
+        inputs = [("tokens", (B, 1 if kind == "decode" else S), 8)]
+    total += sum(local(s, sanitize_spec(data_specs(mesh)[k], s, mesh), b)
+                 for k, s, b in inputs)
     if kind in ("prefill", "decode"):
         caches = init_caches(cfg, B, S, dtype=torch.bfloat16, device="meta")
         cs = cache_shardings(caches, cfg, mesh)
@@ -4020,6 +4107,36 @@ def _spec_bytes(cfg, kind, shape, mesh, knobs, arch):
                        for k, v in t.items())
         total += walk(caches, cs)
     return total
+
+
+# minicpm3-4b prefill_32k at 2 layers when the attn_qchunk rule was not
+# read yet (PERF.md §6): every model rank attended every head.
+QCHUNK_UNREAD = {"flops_per_device": 1.928e14, "temp_bytes": 38.0e9}
+
+
+def _check_qchunk_dryrun(rec, cfg, shape, mesh):
+    """The dry run of a cell under the attn_qchunk rule: the plain
+    attention's FLOPs per device are those of its batch share (data) and
+    its rows of each query chunk (model), every key, QKᵀ and PV at MLA's
+    latent widths; logged beside the cell's record from before the rule
+    was read."""
+    from repro_torch.configs import SHAPE_DEFS
+    from repro_torch.sharding.logical import axis_sizes
+
+    sd, sizes = SHAPE_DEFS[shape], axis_sizes(mesh)
+    S, B = sd["seq_len"], sd["global_batch"]
+    dk = cfg.kv_lora_rank + cfg.qk_rope_dim
+    want = (2 * cfg.n_layers * (B // sizes["data"]) * (S // sizes["model"])
+            * cfg.n_heads * S * (dk + cfg.kv_lora_rank))
+    got = rec["kernel_flops_per_device"]["flash_attention"]
+    log("mesh", json.dumps({
+        "attn_qchunk": rec["arch"], "shape": shape,
+        "flops_per_device": rec["flops_per_device"],
+        "temp_bytes": rec["memory"]["temp_size_in_bytes"],
+        "attention_flops_per_device": got,
+        "attention_flops_rows_split": want,
+        "rule_not_read": QCHUNK_UNREAD}))
+    assert got == want, (got, want)
 
 
 def _mesh_dryruns():
@@ -4058,6 +4175,9 @@ def _mesh_dryruns():
             rec["memory"], want)
         assert rec["flops_per_device"] > 0
         assert rec["collective_bytes_per_device"], rec
+        if "attn_qchunk" in knobs.get("extra_rules", {}):
+            _check_qchunk_dryrun(rec, cfg.replace(**knobs["cfg_overrides"]),
+                                 shape, mesh)
     p = MESH_PLAN
     SHAPE_DEFS["__mesh_plan"] = dict(seq_len=p["seq"],
                                      global_batch=p["batch"], kind="prefill")
@@ -4071,6 +4191,68 @@ def _mesh_dryruns():
     import torch.distributed as dist
     dist.destroy_process_group()
     return fake
+
+
+def _qchunk_prefill(mesh):
+    """Reduced minicpm3-4b's prefill through ``run_cell``'s step on the
+    card's (1, 1) NCCL mesh under the attn_qchunk rule, against the
+    meshless prefill of the same seeded model and tokens: the logits,
+    and flash launched once a query chunk (at its offset) against once a
+    layer. → the launches of the mesh runs."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.configs import SHAPE_DEFS, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.models import forward, init_caches, init_model
+    from repro_torch.sharding.logical import Spec
+
+    qp = QCHUNK_PREFILL
+    B, S = qp["batch"], qp["seq"]
+    SHAPE_DEFS["__qchunk"] = dict(seq_len=S, global_batch=B, kind="prefill")
+    rules = {"attn_qchunk": Spec(("data",), "model", None, None, None)}
+    total = collections.Counter()
+    for dtype, tol in (("float32", QCHUNK_F32_RTOL),
+                       ("bfloat16", LOGIT_REL_TOL)):
+        cfg = get_config("minicpm3-4b", reduced=True).replace(dtype=dtype)
+        tok = torch.randint(0, cfg.vocab_size, (B, S), device="cuda",
+                            generator=torch.Generator(device="cuda")
+                            .manual_seed(0))
+        with torch.no_grad():
+            reset_launch_counts()
+            want = forward(init_model(cfg, seed=0, device="cuda",
+                                      train=True), {"tokens": tok},
+                           mode="prefill", caches=init_caches(
+                               cfg, B, S, device="cuda"))[0]
+            plain_counts = launch_counts()
+            cell, _ = dryrun.lower_cell("minicpm3-4b", "__qchunk", mesh,
+                                        cfg=cfg, extra_rules=rules,
+                                        materialize=True)
+            params, batch, caches = cell.args
+            batch["tokens"] = distribute_tensor(
+                tok, mesh, batch["tokens"].placements, src_data_rank=None)
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            got = cell.run()[0].full_tensor()
+            torch.cuda.synchronize()
+            counts = launch_counts()
+        total.update(counts)
+        err = ((got.float() - want.float()).abs().max()
+               / want.float().abs().max()).item()
+        chunks = -(-S // cfg.attn_chunk)
+        log("mesh", json.dumps({
+            "attn_qchunk_prefill": cfg.name, "dtype": dtype, "batch": B,
+            "seq": S, "layers": cfg.n_layers, "chunk": cfg.attn_chunk,
+            "rel_err_vs_meshless": err, "bit_for_bit": torch.equal(got, want),
+            "limit": tol, "launches": {k: v for k, v in counts.items() if v},
+            "meshless_launches": {k: v for k, v in plain_counts.items()
+                                  if v}}))
+        assert counts["flash_attention"] == cfg.n_layers * chunks, counts
+        assert plain_counts["flash_attention"] == cfg.n_layers, plain_counts
+        assert sum(counts.values()) == counts["flash_attention"], counts
+        assert torch.isfinite(got).all() and got.shape == want.shape
+        assert err <= tol, (err, tol)
+        del cell, params, batch, caches
+    return total
 
 
 def _check_compress(fn, g, err):
@@ -4184,9 +4366,69 @@ def phase_mesh():
         log("mesh", json.dumps({"compressed_all_reduce_mean_1rank": ok,
                                 "planted_err_dropped_rejected": not fault}))
         assert ok and not fault
+        total.update(_qchunk_prefill(mesh))
     finally:
         dist.destroy_process_group()
     log("mesh", f"phase 12 in {time.perf_counter() - t_phase:.1f}s")
+    return total
+
+
+def phase_entry_points():
+    """Phase 13: the port's counterparts of the JAX package's last two
+    examples, each run once as a user runs it, on the card (the
+    default), with every launch count at 0 just before and read just
+    after: launch.plan_mesh (the calibration pass on the card, then every
+    arch planned on a 16x16 grid of cards) and launch.optserve_client
+    (evals under regime and flow, a GA solve and a pipeline through
+    OptServer, then a warm restart served from its store through
+    submit_async)."""
+    import contextlib
+    import io
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import optserve_client, plan_mesh
+
+    total = collections.Counter()
+    for name, fn in (("plan_mesh", lambda: plan_mesh.main([])),
+                     ("optserve_client", lambda: optserve_client.main([]))):
+        out = io.StringIO()
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            res = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k: v for k, v in launch_counts().items() if v}
+        total.update(counts)
+        lines = out.getvalue().splitlines()
+        log("entry", json.dumps({"entry_point": f"repro_torch.launch.{name}",
+                                 "wall_s": wall, "launches": counts,
+                                 "card": CARD}))
+        for ln in lines:
+            log("entry", ln)
+        if name == "plan_mesh":
+            assert set(res) == set(ARCHS), sorted(res)
+            assert all(r.optimized_latency > 0 for r in res.values())
+            assert counts == {k: v for k, v in CALIB_LAUNCHES.items() if v}, \
+                counts
+        else:
+            # the store holds this process's whole sweep cache: every
+            # request's entry and those of the phases before
+            assert res["loaded"] >= len(res["cold"])
+            assert res["warm_stats"]["cache_hit_rate"] == 1.0
+            for r, a, b in zip(optserve_client.build_requests(),
+                               res["cold"], res["warm"]):
+                if r.kind == "eval":
+                    same = all(np.array_equal(a[k], b[k]) for k in a)
+                elif r.kind == "solve":
+                    same = (a.objective, a.evaluations) == (b.objective,
+                                                            b.evaluations)
+                else:
+                    same = (a.sequential, a.pipelined) == (b.sequential,
+                                                           b.pipelined)
+                assert same, (r.kind, a, b)
+            assert counts.get("netsim_waterfill", 0) > 0, counts
     return total
 
 
@@ -4216,9 +4458,10 @@ def main():
     launches.update(phase_cosearch())
     launches.update(phase_train())
     launches.update(phase_mesh())
-    log("mesh", f"launches over the calibration pass, the serve "
+    launches.update(phase_entry_points())
+    log("entry", f"launches over the calibration pass, the serve "
         f"paths, the encoder, the pipelining sweep, the flow legs, phase 9, "
-        f"phase 10, the trainer and phase 12: {dict(launches)}")
+        f"phase 10, the trainer, phase 12 and phase 13: {dict(launches)}")
     kernels = [{
         "name": name, "route": "cuda", "source": src, "replaces": tpu,
         "launches": launches[name],

@@ -5,8 +5,11 @@
 // computes the same function: softmax(scale * Q K^T) V with f32
 // accumulation and an online softmax (running max, running denominator),
 // GQA (query head h reads KV head h / (H / KV)), causal and sliding-window
-// masks (kpos > qpos - window), tanh soft-capping, a custom scale, and a
-// value width Dv that may differ from the key width Dk. It takes Dk, Dv
+// masks (kpos > qpos - window), tanh soft-capping, a custom scale, a
+// value width Dv that may differ from the key width Dk, and query rows that
+// start at position q_offset (query row i sits at position q_offset + i:
+// a slice of a longer query, such as one rank's rows of a query chunk
+// when the rows are split over a mesh). It takes Dk, Dv
 // <= 256, and MLA's absorbed latent heads: Dk and Dv that round up to 288
 // and 256 (minicpm3-4b's kv_lora 256 + rope 32 keys over kv_lora 256
 // values, one KV head) or to 576 and 512 (deepseek-v2's kv_lora 512 + rope
@@ -126,6 +129,7 @@ struct Params {
   long long v_sb, v_ss, v_sh;
   long long o_sb, o_ss, o_sh;
   int causal, window;                 // window <= 0: none
+  int q_offset;                       // the position of query row 0
   float softcap, scale;               // softcap <= 0: none
   // bf16 only: 16-byte rows in, 4-byte pairs out; (b, h) pairs a group
   // of the block order, and B.
@@ -189,10 +193,11 @@ flash_f32_kernel(const Params p) {
     qs[i] = qi < p.Sq ? qg[qi * p.q_ss + d] : 0.f;
   }
 
-  // KV range that any row of this query tile can see.
+  // KV range that any row of this query tile can see (positions are
+  // q_offset on from the tile's rows).
   int kv_lo = 0, kv_hi = p.Skv;
-  if (p.causal) kv_hi = min(kv_hi, min(q0 + kBQ, p.Sq));
-  if (p.window > 0) kv_lo = max(0, q0 - p.window + 1);
+  if (p.causal) kv_hi = min(kv_hi, p.q_offset + min(q0 + kBQ, p.Sq));
+  if (p.window > 0) kv_lo = max(0, p.q_offset + q0 - p.window + 1);
 
   float m[kRows], l[kRows], acc[kRows][NV];
 #pragma unroll
@@ -240,13 +245,13 @@ flash_f32_kernel(const Params p) {
     // Mask, online softmax; s becomes the tile's probabilities.
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
-      const int qpos = q0 + r0 + r;
+      const int qi = q0 + r0 + r, qpos = p.q_offset + qi;
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
         const int kpos = k0 + lane + 32 * c;
         float x = s[r][c] * p.scale;
         if (p.softcap > 0.f) x = p.softcap * tanhf(x / p.softcap);
-        bool ok = kpos < p.Skv && qpos < p.Sq;
+        bool ok = kpos < p.Skv && qi < p.Sq;
         if (p.causal) ok = ok && kpos <= qpos;
         if (p.window > 0) ok = ok && kpos > qpos - p.window;
         s[r][c] = ok ? x : kNegInf;
@@ -421,6 +426,7 @@ flash_bf16_kernel(const Params p) {
   const int kvh = h / (p.H / p.KV);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int qw0 = q0 + 16 * warp;     // this warp's first query row
+  const int pw0 = p.q_offset + qw0;   // and its position
   // This block's value slice: columns DV * blockIdx.y on, dv of them.
   const int dv0 = DV * static_cast<int>(blockIdx.y);
   const int dv = min(DV, p.Dv - dv0);
@@ -431,10 +437,11 @@ flash_bf16_kernel(const Params p) {
       static_cast<const bf16*>(p.v) + b * p.v_sb + kvh * p.v_sh + dv0;
   bf16* og = static_cast<bf16*>(p.o) + b * p.o_sb + h * p.o_sh + dv0;
 
-  // KV range that any row of this query tile can see.
+  // KV range that any row of this query tile can see (positions are
+  // q_offset on from the tile's rows).
   int kv_lo = 0, kv_hi = p.Skv;
-  if (p.causal) kv_hi = min(kv_hi, min(q0 + kBQ16, p.Sq));
-  if (p.window > 0) kv_lo = max(0, q0 - p.window + 1);
+  if (p.causal) kv_hi = min(kv_hi, p.q_offset + min(q0 + kBQ16, p.Sq));
+  if (p.window > 0) kv_lo = max(0, p.q_offset + q0 - p.window + 1);
   const int n_kv = kv_hi > kv_lo ? (kv_hi - kv_lo + kBKV - 1) / kBKV : 0;
 
   auto load_kv = [&](int t) {
@@ -534,13 +541,13 @@ flash_bf16_kernel(const Params p) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[j][e] *= s_mul;
     }
-    if (k0 + kBKV > p.Skv || (p.causal && k0 + kBKV - 1 > qw0) ||
-        (p.window > 0 && k0 <= qw0 + 15 - p.window)) {
+    if (k0 + kBKV > p.Skv || (p.causal && k0 + kBKV - 1 > pw0) ||
+        (p.window > 0 && k0 <= pw0 + 15 - p.window)) {
 #pragma unroll
       for (int j = 0; j < NS; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int qpos = qw0 + mma::frag_row(lane, e);
+          const int qpos = pw0 + mma::frag_row(lane, e);
           const int kpos = k0 + 8 * j + mma::frag_col(lane, e);
           bool ok = kpos < p.Skv;
           if (p.causal) ok = ok && kpos <= qpos;
@@ -746,14 +753,15 @@ extern "C" int flash_attention_fwd(
     long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh,
     long long o_sb, long long o_ss, long long o_sh,
-    int causal, int window, float softcap, float scale, void* stream) {
+    int causal, int window, int q_offset, float softcap, float scale,
+    void* stream) {
   if (B <= 0 || Sq <= 0 || Skv <= 0 || H <= 0 || KV <= 0 || H % KV != 0 ||
-      !supported_dims(Dk, Dv))
+      q_offset < 0 || !supported_dims(Dk, Dv))
     return cudaErrorInvalidValue;
   const Params p{q, k, v, o, Sq, Skv, H, KV, Dk, Dv,
                  q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
                  v_sb, v_ss, v_sh, o_sb, o_ss, o_sh,
-                 causal, window, softcap, scale,
+                 causal, window, q_offset, softcap, scale,
                  false, false, false, false, 1, B};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;

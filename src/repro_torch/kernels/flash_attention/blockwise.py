@@ -4,7 +4,9 @@ algorithm over KV chunks inside a loop over query chunks, O(S·c) memory.
 It is the plain version beside the CUDA kernel (``kernel.py``): the
 model runs it for CPU tensors, and the kernel is held against it on the
 card. Supports GQA grouping, causal, sliding-window, soft-capping, a
-custom scale and a value width that differs from the key width.
+custom scale, a value width that differs from the key width, and query
+rows that start at position ``q_offset`` (a slice of a longer query, as
+the JAX version's ``q_offset``).
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ def blockwise_attention(
     causal: bool = True,
     window: int | None = None,
     softcap: float | None = None,
+    q_offset: int = 0,
     q_chunk: int = 512,
     kv_chunk: int = 1024,
     scale: float | None = None,
@@ -69,7 +72,8 @@ def blockwise_attention(
         qblk = q[:, q0:q0 + q_chunk].float()
         c = qblk.shape[1]
         qblk = qblk.reshape(B, c, KV, G, Dk)
-        qpos = torch.arange(q0, q0 + c, device=q.device)[:, None]
+        qpos = torch.arange(q_offset + q0, q_offset + q0 + c,
+                            device=q.device)[:, None]
         acc = torch.zeros(B, KV, G, c, Dv, device=q.device)
         m = torch.full((B, KV, G, c), NEG_INF, device=q.device)
         l = torch.zeros(B, KV, G, c, device=q.device)

@@ -54,12 +54,12 @@ def _fn():
     fn = _build.load("flash_attention").flash_attention_fwd
     p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     fn.argtypes = ([p, p, p, p, i] + [i] * 7 + [i64] * 12
-                   + [i, i, ctypes.c_float, ctypes.c_float, p])
+                   + [i, i, i, ctypes.c_float, ctypes.c_float, p])
     fn.restype = ctypes.c_int
     return fn
 
 
-def _check(q, k, v, window, softcap):
+def _check(q, k, v, window, softcap, q_offset):
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda":
             raise ValueError(
@@ -98,6 +98,9 @@ def _check(q, k, v, window, softcap):
     if softcap is not None and not softcap > 0:
         raise ValueError(f"flash_attention: softcap must be > 0, got "
                          f"{softcap}")
+    if not 0 <= q_offset < 2 ** 31 - Sq:
+        raise ValueError(f"flash_attention: q_offset must be >= 0 and "
+                         f"q_offset + Sq < 2^31, got {q_offset}")
 
 
 def flash_attention(
@@ -109,9 +112,12 @@ def flash_attention(
     window: int | None = None,
     softcap: float | None = None,
     scale: float | None = None,
+    q_offset: int = 0,
 ) -> torch.Tensor:
+    """``q_offset``: the position of query row 0 (the causal and window
+    masks put query row i at q_offset + i)."""
     refuse_grad("flash_attention", q, k, v)
-    _check(q, k, v, window, softcap)
+    _check(q, k, v, window, softcap, q_offset)
     B, Sq, H, Dk = q.shape
     _, Skv, KV, Dv = v.shape
     if scale is None:
@@ -124,7 +130,7 @@ def flash_attention(
                  _DTYPES[q.dtype], B, Sq, Skv, H, KV, Dk, Dv,
                  *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                  *out.stride()[:3], int(causal), window or 0,
-                 softcap or 0.0, scale, stream)
+                 int(q_offset), softcap or 0.0, scale, stream)
     if err:
         raise RuntimeError(f"flash_attention: kernel launch failed with CUDA "
                            f"error {err}")

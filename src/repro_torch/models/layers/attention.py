@@ -143,12 +143,16 @@ class Attention(nn.Module):
         k = rope(k, positions, self.cfg.rope_theta)
         return shard(q, "act_bshd"), k, v
 
-    def _attend(self, q, k, v, window, causal):
+    def _attend(self, q, k, v, window, causal, split=None):
+        """``ops.attention``; with ``split`` (an ``ops.RowSplit``) only
+        this rank's rows of each query chunk (``ops.rows_attention``)."""
         cfg = self.cfg
-        return ops.attention(q, k, v, causal=causal, window=window,
-                             softcap=cfg.attn_logit_softcap,
-                             q_chunk=cfg.attn_chunk,
-                             kv_chunk=2 * cfg.attn_chunk)
+        kw = dict(causal=causal, window=window,
+                  softcap=cfg.attn_logit_softcap, q_chunk=cfg.attn_chunk,
+                  kv_chunk=2 * cfg.attn_chunk)
+        if split is not None:
+            return ops.rows_attention(q, k, v, split, **kw)
+        return ops.attention(q, k, v, **kw)
 
     def _out(self, o, dtype):
         B, S, H, Dh = o.shape
@@ -161,24 +165,33 @@ class Attention(nn.Module):
         the heads split over ``model`` when it divides the query and the
         kv heads (Megatron's attention; else every model rank runs all
         heads), the output a partial sum over the split. k and v leave
-        the region for the prefill's cache write."""
+        the region for the prefill's cache write. Where the rules hold
+        ``attn_qchunk``, the heads stay whole and each rank attends and
+        projects its rows of each query chunk (``ops.row_region``)."""
         mesh = mesh_of(x, self.wq)
-        hs = split_axis(mesh, self.wq.shape[1], self.wk.shape[1])
         sx = sanitize_spec(Spec(rule("act_btd", mesh)[0], None, None),
                            x.shape, mesh)
-        skv = Spec(sx[0], None, hs, None)
-        sw = Spec(None, hs, None)
 
-        def local(xl, wq, wk, wv, wo, p):
-            with local_params(self, wq=wq, wk=wk, wv=wv, wo=wo):
-                q, k, v = self._qkv(xl, p, dtype)
-                return self._out(self._attend(q, k, v, window, causal),
-                                 dtype), k, v
-        out, k, v = local_region(
-            local, mesh, (x, self.wq, self.wk, self.wv, self.wo, positions),
-            (sx, sw, sw, sw, Spec(hs, None, None), Spec(None, None)),
-            (row_parallel(sx, mesh, hs), placements(skv, mesh),
-             placements(skv, mesh)))
+        def region(split, hs, out_pl):
+            skv = Spec(sx[0], None, hs, None)
+            sw = Spec(None, hs, None)
+
+            def local(xl, wq, wk, wv, wo, p):
+                with local_params(self, wq=wq, wk=wk, wv=wv, wo=wo):
+                    q, k, v = self._qkv(xl, p, dtype)
+                    return self._out(self._attend(q, k, v, window, causal,
+                                                  split), dtype), k, v
+            return local_region(
+                local, mesh,
+                (x, self.wq, self.wk, self.wv, self.wo, positions),
+                (sx, sw, sw, sw, Spec(hs, None, None), Spec(None, None)),
+                (out_pl, placements(skv, mesh), placements(skv, mesh)))
+        res = ops.row_region(mesh, sx[0], x.shape, self.cfg.attn_chunk,
+                             lambda split, pl: region(split, None, pl))
+        if res is None:
+            hs = split_axis(mesh, self.wq.shape[1], self.wk.shape[1])
+            res = region(None, hs, row_parallel(sx, mesh, hs))
+        out, k, v = res
         if mode == "prefill":
             for n, t in (("k", k), ("v", v)):
                 cache[n] = shard(prefill_cache(cache[n], t), "cache")

@@ -136,9 +136,11 @@ class MLA(nn.Module):
                 cache
         return shard(self._out(ctx, dtype), "act_btd"), cache
 
-    def _attend(self, x, positions, dtype):
+    def _attend(self, x, positions, dtype, split=None):
         """Train and prefill: (out (B, S, D), c_kv, k_rope), MQA in the
-        latent space through ``ops.attention``."""
+        latent space through ``ops.attention``; with ``split`` (an
+        ``ops.RowSplit``) only this rank's rows of each query chunk, the
+        output's rows as ``ops.rows_attention`` orders them."""
         cfg = self.cfg
         r_kv = cfg.kv_lora_rank
         scale = 1.0 / math.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim)
@@ -146,9 +148,13 @@ class MLA(nn.Module):
                                                     dtype)
         q_cat = torch.cat([q_abs, q_rope], dim=-1)
         k_cat = torch.cat([c_kv, k_rope], dim=-1)[:, :, None, :]
-        ctx = ops.attention(q_cat, k_cat, k_cat[..., :r_kv], causal=True,
-                            scale=scale, q_chunk=cfg.attn_chunk,
-                            kv_chunk=2 * cfg.attn_chunk)
+        kw = dict(causal=True, scale=scale, q_chunk=cfg.attn_chunk,
+                  kv_chunk=2 * cfg.attn_chunk)
+        if split is None:
+            ctx = ops.attention(q_cat, k_cat, k_cat[..., :r_kv], **kw)
+        else:
+            ctx = ops.rows_attention(q_cat, k_cat, k_cat[..., :r_kv], split,
+                                     **kw)
         return self._out(ctx, dtype), c_kv, k_rope
 
     def _out(self, ctx, dtype):
@@ -157,12 +163,12 @@ class MLA(nn.Module):
         return v.reshape(B, S, -1) @ self.wo.to(dtype).reshape(
             -1, self.wo.shape[-1])
 
-    def _region(self, mesh, fn, args, arg_specs, names, out_placements):
+    def _region(self, mesh, fn, args, arg_specs, names, out_placements,
+                hs):
         """``fn(*args)`` with this layer's parameters ``names`` in a
-        ``local_map`` region (PERF.md §3): the heads split over ``model``
-        when it divides them (wq_b or wq, wk_b, wv_b, wo), the low-rank
+        ``local_map`` region (PERF.md §3): the heads split over ``hs``
+        (wq_b or wq, wk_b, wv_b, wo; None: whole), the low-rank
         projections and their norms whole."""
-        hs = split_axis(mesh, self.wo.shape[0])
         heads = Spec(None, hs, None)
         specs = {"wq_a": Spec(None, None), "q_a_norm": Spec(None),
                  "wq_b": heads, "wq": heads, "wkv_a": Spec(None, None),
@@ -181,16 +187,27 @@ class MLA(nn.Module):
     def _on_mesh(self, x, positions, dtype):
         """``_attend`` in a region: x with its batch over the data axes
         and whole on ``model``; the output a partial sum over the heads'
-        split, the latents whole."""
+        split, the latents whole. Where the rules hold ``attn_qchunk``,
+        the heads stay whole and the rows of each query chunk are split
+        over the rule's axes instead (``ops.row_region``): each rank
+        attends and projects its rows, which come back in sequence
+        order."""
         mesh = mesh_of(x, self.wo)
-        hs = split_axis(mesh, self.wo.shape[0])
         sx = sanitize_spec(Spec(rule("act_btd", mesh)[0], None, None),
                            x.shape, mesh)
         whole = placements(Spec(sx[0], None, None), mesh)
-        return self._region(
-            mesh, lambda xl, p: self._attend(xl, p, dtype), (x, positions),
-            (sx, Spec(None, None)), list(_WEIGHTS),
-            (row_parallel(sx, mesh, hs), whole, whole))
+
+        def region(split, hs, out_pl):
+            return self._region(
+                mesh, lambda xl, p: self._attend(xl, p, dtype, split),
+                (x, positions), (sx, Spec(None, None)), list(_WEIGHTS),
+                (out_pl, whole, whole), hs)
+        res = ops.row_region(mesh, sx[0], x.shape, self.cfg.attn_chunk,
+                             lambda split, pl: region(split, None, pl))
+        if res is not None:
+            return res
+        hs = split_axis(mesh, self.wo.shape[0])
+        return region(None, hs, row_parallel(sx, mesh, hs))
 
     def _latents_on_mesh(self, mesh, x, positions, dtype):
         """Decode's ``_latents`` in a region: the queries' heads split as
@@ -206,7 +223,7 @@ class MLA(nn.Module):
             mesh, lambda xl, p: self._latents(xl.to(dtype), p, dtype),
             (x, positions), (sx, sp),
             [k for k in _WEIGHTS if k not in ("wv_b", "wo")],
-            (q, q, whole, whole))
+            (q, q, whole, whole), hs)
 
     def _out_on_mesh(self, mesh, ctx, dtype):
         """``_out`` in a region: ctx's heads split as wv_b's and wo's,
@@ -217,7 +234,7 @@ class MLA(nn.Module):
         return self._region(
             mesh, lambda c: self._out(c, dtype), (ctx,), (sc,),
             ["wv_b", "wo"],
-            row_parallel(Spec(sc[0], None, None), mesh, hs))
+            row_parallel(Spec(sc[0], None, None), mesh, hs), hs)
 
 
 # MLA's parameters, in the order the regions pass them.

@@ -337,6 +337,19 @@ def local_params(module, **tensors):
         module._parameters.update(saved)
 
 
+def axis_index(mesh, entry) -> tuple[int, int]:
+    """(this rank's index, their count) over the mesh axes of the spec
+    entry ``entry``, the first one outermost, as ``Shard`` orders the
+    shards; (0, 1) for None."""
+    names = list(mesh.mesh_dim_names)
+    coord = mesh.get_coordinate() or [0] * len(names)
+    index, count = 0, 1
+    for a in _axes(entry):
+        size = mesh.shape[names.index(a)]
+        index, count = index * size + coord[names.index(a)], count * size
+    return index, count
+
+
 def split_axis(mesh, *sizes):
     """``model`` if it divides every one of ``sizes`` (heads, a hidden
     width), else None: the tensor-parallel split of a layer."""

@@ -21,7 +21,7 @@ from __future__ import annotations
 
 from ..models.convert import jax_leaf_paths
 from .logical import Spec as P
-from .logical import axis_sizes, best_spec, placements, sanitize_spec
+from .logical import _axes, axis_sizes, best_spec, placements, sanitize_spec
 
 DATA, MODEL, POD = "data", "model", "pod"
 
@@ -128,7 +128,10 @@ def param_specs(cfg, params: dict, mesh, fsdp_axes=(DATA,)) -> dict:
             out[name] = P(*([None] * len(shape)))
             continue
         spec = best_spec([_sub_fsdp(c, fsdp) for c in cands], jshape, mesh)
-        if any(e is not None for e in spec[:stack]):
+        # an axis of size 1 on a stack dim (JAX shards its stacked leaf
+        # there) lays nothing out
+        sizes = axis_sizes(mesh)
+        if any(sizes[a] > 1 for e in spec[:stack] for a in _axes(e)):
             raise AssertionError(f"{name}: a stack dim is sharded: {spec}")
         out[name] = P(*spec[stack:])
     return out

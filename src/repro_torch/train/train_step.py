@@ -21,7 +21,9 @@ import torch
 from ..models.convert import jax_ranks
 from ..models.loss import fused_lm_loss
 from ..models.transformer import Transformer, forward
-from ..sharding.logical import local_region, mesh_of, placements, spec_of
+from ..sharding.logical import (Spec, gather_dim, mesh_of, placements,
+                                sanitize_spec)
+from ..sharding.partition_specs import batch_axes, data_specs
 from .optimizer import Optimizer, tree_map
 
 TrainState = dict  # {"params": {name: tensor}, "opt": {...}, "step": i32}
@@ -100,25 +102,47 @@ def grads_of(cfg, params, batch):
             {k: v.detach() for k, v in metrics.items()})
 
 
-def microbatch(v, i: int, n: int):
-    """Microbatch i of n: rows i·b..(i+1)·b − 1 of the batch, b = rows / n.
-    On a mesh, where the batch is split over the data axes, the same rows
-    of each rank's own shard, in a ``local_map`` region (PERF.md §3), so
-    no rank gathers the batch; the microbatches differ from the
-    one-device ones but cover the same rows."""
-    mesh = mesh_of(v)
-    if mesh is None:
-        b = v.shape[0] // n
-        return v[i * b:(i + 1) * b]
-    spec = spec_of(v)
+def microbatches(batch: dict, n: int) -> list[dict]:
+    """The n microbatches of ``batch``: microbatch i is rows i·b..(i+1)·b
+    − 1 of each input, b = rows // n, the tail dropped (JAX's
+    ``x[:b·n].reshape(n, b, …)``). On a mesh each input is gathered along
+    its rows once, and each microbatch is laid out as ``data_specs`` says
+    for its key (the data axes on its first dim for any other), sanitised
+    against its shape, which moves no data: the microbatches are the
+    one-device ones on every mesh."""
+    out = [{} for _ in range(n)]
+    for key, v in batch.items():
+        v = gather_dim(v, 0)
+        mesh, b = mesh_of(v), v.shape[0] // n
+        for i, micro in enumerate(out):
+            rows = v[i * b:(i + 1) * b]
+            if mesh is not None:
+                spec = data_specs(mesh).get(key) or Spec(batch_axes(mesh))
+                rows = rows.redistribute(mesh, placements(
+                    sanitize_spec(spec, rows.shape, mesh), mesh))
+            micro[key] = rows
+    return out
 
-    def rows(t):
-        if t.shape[0] % n:
-            raise ValueError(f"a rank's {t.shape[0]} rows do not split into "
-                             f"{n} microbatches")
-        b = t.shape[0] // n
-        return t[i * b:(i + 1) * b]
-    return local_region(rows, mesh, (v,), (spec,), placements(spec, mesh))
+
+def accumulated_grads(cfg, params, batch, accum_steps: int = 1,
+                      accum_dtype=torch.float32):
+    """``grads_of`` the batch, or with ``accum_steps > 1`` the mean of
+    ``grads_of`` its microbatches (``microbatches``), run one after
+    another and summed in ``accum_dtype``: (gradients, metrics {"loss",
+    "aux"})."""
+    if accum_steps == 1:
+        return grads_of(cfg, params, batch)
+    grads = {n: torch.zeros_like(p, dtype=accum_dtype)
+             for n, p in params.items()}
+    metrics = {k: torch.zeros((), device=next(iter(params.values())).device)
+               for k in ("loss", "aux")}
+    for micro in microbatches(batch, accum_steps):
+        g, m = grads_of(cfg, params, micro)
+        torch._foreach_add_(list(grads.values()), [
+            g[n].to(accum_dtype) for n in grads])
+        metrics = {k: metrics[k] + m[k] for k in metrics}
+    return (tree_map(lambda g: g / accum_steps, grads),
+            tree_map(lambda m: m / accum_steps, metrics))
 
 
 def make_train_step(cfg, optimizer: Optimizer, accum_steps: int = 1,
@@ -137,23 +161,8 @@ def make_train_step(cfg, optimizer: Optimizer, accum_steps: int = 1,
         params = state["params"]
         device = next(iter(params.values())).device
         batch = to_device(batch, device)
-        if accum_steps == 1:
-            grads, metrics = grads_of(cfg, params, batch)
-        else:
-            grads = {n: torch.zeros_like(p, dtype=accum_dtype)
-                     for n, p in params.items()}
-            metrics = {k: torch.zeros((), device=device)
-                       for k in ("loss", "aux")}
-            for i in range(accum_steps):
-                micro = {k: microbatch(v, i, accum_steps)
-                         for k, v in batch.items()}
-                g, m = grads_of(cfg, params, micro)
-                torch._foreach_add_(list(grads.values()), [
-                    g[n].to(accum_dtype) for n in grads])
-                metrics = {k: metrics[k] + m[k] for k in metrics}
-            grads = tree_map(lambda g: g / accum_steps, grads)
-            metrics = tree_map(lambda m: m / accum_steps, metrics)
-
+        grads, metrics = accumulated_grads(cfg, params, batch, accum_steps,
+                                           accum_dtype)
         with torch.no_grad():
             new_params, new_opt, opt_metrics = optimizer.update(
                 grads, state["opt"], params, ranks=jax_ranks(cfg, params))

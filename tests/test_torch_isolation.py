@@ -49,7 +49,10 @@ def test_import_leaves_jax_unloaded():
             "repro_torch.launch.policies, repro_torch.sharding.logical, "
             "repro_torch.sharding.partition_specs, "
             "repro_torch.roofline.analysis, "
-            "repro_torch.train.grad_compress; "
+            "repro_torch.train.grad_compress, "
+            "repro_torch.launch.plan_mesh, "
+            "repro_torch.launch.optserve_client, "
+            "repro_torch.kernels.flash_attention.ops; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

@@ -5,7 +5,8 @@ shapes and the calibration's sizes and the SSD at the calibration's
 state dim 16; flash at MLA's latent heads (Dk 288 / Dv 256, KV 1, H 40;
 Dk 576 / Dv 512 over two value slices, each slice held on its own) and at
 hubert-xlarge's non-causal encoder (D 80) in both dtypes, and its
-refusal of pairs it is not built for; the bf16
+refusal of pairs it is not built for; its query offset (a slice of
+rows at its positions) in both dtypes; the bf16
 tensor-core paths of flash (every head-dim tiling, GQA, ragged lengths,
 rows that are not 16-byte aligned), of
 the GEMM (K tails and unaligned rows), and of the chunked SSD and WKV-6
@@ -232,6 +233,45 @@ def test_flash_kernel_bf16_matches_plain(cuda, case):
     assert got.dtype == torch.bfloat16 and got.shape == (B, Sq, H, dv)
     want = blockwise_attention(q, k, v, **kw)
     torch.testing.assert_close(got.float(), want.float(), **FLASH_BF16_TOL)
+
+
+# The query offset: a slice of rows of a longer query at its positions
+# (one rank's rows of a query chunk), against the plain version at that
+# offset; offsets that start inside, at and past a 64-row tile, windowed,
+# soft-capped, and MLA's latent head.
+FLASH_OFFSET_CASES = {
+    "d64_o40": ((2, 96, 320, 6, 2, 64, 64), 40, dict(causal=True)),
+    "d64_o128_win": ((2, 64, 320, 6, 2, 64, 64), 128,
+                     dict(causal=True, window=90)),
+    "d80_o200_cap": ((1, 120, 320, 4, 4, 80, 80), 200,
+                     dict(causal=True, softcap=30.0)),
+    "mla_o96": ((1, 64, 256, 40, 1, 288, 256), 96,
+                dict(causal=True, scale=96 ** -0.5)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", FLASH_OFFSET_CASES)
+def test_flash_kernel_query_offset(cuda, case, dtype):
+    """The kernel with ``q_offset`` against the plain version at the same
+    offset, one launch a call; offset 0 is the call without it, bit for
+    bit."""
+    (B, Sq, Skv, H, KV, dk, dv), off, kw = FLASH_OFFSET_CASES[case]
+    g = torch.Generator(device=cuda).manual_seed(11)
+    q, k, v = (torch.randn(*s, generator=g, device=cuda).to(dtype)
+               for s in ((B, Sq, H, dk), (B, Skv, KV, dk), (B, Skv, KV, dv)))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, q_offset=off, **kw)
+    assert flash_attention.launches == before + 1
+    want = blockwise_attention(q, k, v, q_offset=off, **kw)
+    tol = F32_TOL if dtype == torch.float32 else FLASH_BF16_TOL
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    assert torch.equal(flash_attention(q, k, v, q_offset=0, **kw),
+                       flash_attention(q, k, v, **kw))
+    with pytest.raises(ValueError, match="q_offset"):
+        flash_attention(q, k, v, q_offset=-1, **kw)
 
 
 # MLA's absorbed latent head (minicpm3-4b): MQA (KV 1) with H 40, keys of
